@@ -1,0 +1,43 @@
+"""Model factory: config dict -> eval-mode ``nn.Module`` on a device."""
+
+from __future__ import annotations
+
+import torch
+
+from podtpu_torch import resolve_device
+from podtpu_torch.models.yolov3 import YoloV3
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+}
+
+# families of podtpu's factory that the port does not build yet
+_LATER = ("yolov1", "yolov2", "yolov4-tiny", "yolov4", "retinanet")
+
+
+def compute_dtype(cfg: dict) -> torch.dtype:
+    return _DTYPES[cfg.get("compute_dtype", "float32")]
+
+
+def build_model(cfg: dict, device: str | torch.device | None = None):
+    """Instantiate the detector named by ``cfg['model']`` in eval mode.
+
+    Weights are PyTorch's default init; load trained ones with
+    :func:`podtpu_torch.export.weights.load_npz_weights`.
+    """
+    name = cfg["model"]
+    if cfg.get("qat"):
+        raise NotImplementedError("qat (fake-quant training) is not ported "
+                                  "yet (ROADMAP.md queue 1, train-step "
+                                  "options)")
+    if name == "yolov3":
+        model = YoloV3(num_classes=cfg["num_classes"],
+                       num_anchors=len(cfg["anchors"]),
+                       in_channels=cfg.get("in_channels", 3),
+                       dtype=compute_dtype(cfg))
+        return model.to(resolve_device(device)).eval()
+    if name in _LATER:
+        raise NotImplementedError(f"model '{name}' is not ported yet "
+                                  "(ROADMAP.md queue 1, other families)")
+    raise ValueError(f"unknown model '{name}'")
