@@ -57,7 +57,9 @@ def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
     t = t.detach().float().cpu()
     if name.endswith("conv.weight"):
         t = t.permute(2, 3, 1, 0)  # OIHW -> HWIO
-    return np.ascontiguousarray(t.numpy())
+    # a copy: a float32 CPU tensor's numpy() shares its memory, which the
+    # next optimizer step or BN update would rewrite
+    return np.array(t.numpy(), order="C", copy=True)
 
 
 def state_dict_from_flat(model: torch.nn.Module,

@@ -1,9 +1,9 @@
-"""Darknet-19 backbone (``podtpu/models/darknet.py``), eval-mode forward.
+"""Darknet-19 backbone (``podtpu/models/darknet.py``).
 
 Six stages (stem + layer1..5) built from ``(out_ch, k)`` / ``"M"`` config
-lists; ``Darknet19`` returns the features at ``out_indices``. The fused
-Pallas stem of ``podtpu`` runs only in train mode and is not part of this
-forward.
+lists; ``Darknet19`` returns the features at ``out_indices``. In train mode
+stage0 and layer1's leading pool run as the fused stem
+(``models/stem.py``) when :func:`stem_fusable` holds.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from podtpu_torch.models.layers import ConvBnAct, max_pool_2x2
+from podtpu_torch.models.stem import fused_stem_pool, stem_fusable
 
 # (out_channels, kernel) conv entries; "M" = 2x2/2 max pool.
 STAGE_CFGS = (
@@ -43,9 +44,11 @@ class _Stage(nn.Module):
             in_ch = out_ch
             conv_idx += 1
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip_pool: bool = False
+                ) -> torch.Tensor:
+        """``skip_pool``: the leading pool already ran (fused stem)."""
         conv_idx = 0
-        for entry in self.cfg:
+        for entry in self.cfg[1:] if skip_pool else self.cfg:
             if entry == "M":
                 x = max_pool_2x2(x)
             else:
@@ -67,9 +70,12 @@ class Darknet19(nn.Module):
             in_ch = STAGE_CHANNELS[i]
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        fuse = stem_fusable(x, self.training, self.out_indices)
+        if fuse:
+            x = fused_stem_pool(self.stage0.conv0, x)
         feats = []
-        for i in range(len(STAGE_CFGS)):
-            x = getattr(self, f"stage{i}")(x)
+        for i in range(1 if fuse else 0, len(STAGE_CFGS)):
+            x = getattr(self, f"stage{i}")(x, skip_pool=fuse and i == 1)
             if i in self.out_indices:
                 feats.append(x)
         return feats

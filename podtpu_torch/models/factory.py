@@ -1,4 +1,4 @@
-"""Model factory: config dict -> eval-mode ``nn.Module`` on a device."""
+"""Model factory: config dict -> ``nn.Module`` on a device."""
 
 from __future__ import annotations
 
@@ -20,8 +20,10 @@ def compute_dtype(cfg: dict) -> torch.dtype:
     return _DTYPES[cfg.get("compute_dtype", "float32")]
 
 
-def build_model(cfg: dict, device: str | torch.device | None = None):
-    """Instantiate the detector named by ``cfg['model']`` in eval mode.
+def build_model(cfg: dict, device: str | torch.device | None = None,
+                train: bool = False):
+    """Instantiate the detector named by ``cfg['model']``, in eval mode
+    unless ``train``.
 
     Weights are PyTorch's default init; load trained ones with
     :func:`podtpu_torch.export.weights.load_npz_weights`.
@@ -36,7 +38,7 @@ def build_model(cfg: dict, device: str | torch.device | None = None):
                        num_anchors=len(cfg["anchors"]),
                        in_channels=cfg.get("in_channels", 3),
                        dtype=compute_dtype(cfg))
-        return model.to(resolve_device(device)).eval()
+        return model.to(resolve_device(device)).train(train)
     if name in _LATER:
         raise NotImplementedError(f"model '{name}' is not ported yet "
                                   "(ROADMAP.md queue 1, other families)")

@@ -1,4 +1,4 @@
-"""Core conv building blocks, eval-mode forward (``podtpu/models/layers.py``).
+"""Core conv building blocks (``podtpu/models/layers.py``).
 
 Tensors are NCHW inside the model (the input is an NHWC batch permuted to
 NCHW, which is a ``channels_last`` view, so cuDNN keeps that layout). As in
@@ -8,10 +8,8 @@ NCHW, which is a ``channels_last`` view, so cuDNN keeps that layout). As in
 * parameters and BN statistics are float32; the convolution and the BN
   multiply-add run in the compute dtype (bf16 for the flagship config);
 * the BN epilogue is one compute-dtype multiply-add whose ``mul``/``add``
-  are folded in float32 from the running statistics.
-
-Train-mode BatchNorm (batch statistics, running-stat update) belongs to the
-training slice and is not here.
+  are folded in float32 from the statistics: the running ones in eval
+  mode, the batch's in train mode (``module.train()``).
 """
 
 from __future__ import annotations
@@ -22,11 +20,20 @@ from torch import nn
 
 
 class BatchNormMixed(nn.Module):
-    """Eval-mode BatchNorm with float32 statistics, compute-dtype apply.
+    """BatchNorm with float32 statistics, compute-dtype apply.
 
     ``weight``/``bias``/``running_mean``/``running_var`` carry ``podtpu``'s
     ``bn/scale``, ``bn/bias``, ``batch_stats/mean`` and ``batch_stats/var``.
+
+    In train mode the statistics are the batch's, taken in float32 from the
+    compute-dtype input: ``mean`` and ``var = max(0, E[x^2] - mean^2)``,
+    differentiated through as flax does; the running statistics then move
+    with decay ``momentum`` and the unbiased (Bessel) variance, as torch
+    and ``podtpu`` update them. ``F.batch_norm`` is not used: it rounds
+    at other places.
     """
+
+    momentum = 0.9  # running-stat decay (torch's momentum 0.1)
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  eps: float = 1e-5):
@@ -38,11 +45,30 @@ class BatchNormMixed(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
+    @torch.no_grad()
+    def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor,
+                             n: int):
+        """Fold one batch's statistics (over ``n`` values per channel) into
+        the running ones."""
+        bessel = n / max(n - 1, 1)
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var
+                               + (1.0 - m) * bessel * var)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        if self.training:
+            x32 = x.float()
+            mean = x32.mean(dim=(0, 2, 3))
+            var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean
+                   ).clamp_min(0.0)
+            self.update_running_stats(mean, var, x.numel() // x.shape[1])
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
         # y = (x - mean) * inv + bias, folded into one multiply-add
         mul = inv.to(self.dtype)[:, None, None]
-        add = (self.bias - self.running_mean * inv).to(self.dtype)[:, None, None]
+        add = (self.bias - mean * inv).to(self.dtype)[:, None, None]
         return x.to(self.dtype) * mul + add
 
 

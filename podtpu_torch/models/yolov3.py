@@ -1,4 +1,4 @@
-"""YOLOv3 detector (``podtpu/models/yolov3.py``), eval-mode forward.
+"""YOLOv3 detector (``podtpu/models/yolov3.py``).
 
 Darknet-19 taps c3/c4/c5; top-down FPN with conv-route + 2x nearest
 upsample; three heads each predicting 3*(5+C) channels. Takes an NHWC

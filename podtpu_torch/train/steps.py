@@ -1,9 +1,13 @@
-"""The serving half of ``podtpu/train/steps.py``: image batch -> detections.
+"""Train step and serving graph (``podtpu/train/steps.py``).
 
-The whole postprocess stays on the batch's device: decode + padded NMS
-(whose suppression is the CUDA kernel on the card); only the
-[B, max_det, 6] survivors leave it. Train and eval steps belong to the
-training slice.
+* ``make_train_step``: train-mode forward (the fused stem's kernels on the
+  card), target encoding and loss, backward and the optimizer update, all
+  on the batch's device.
+* ``make_serve_fn``: image batch -> detections. The whole postprocess stays
+  on the batch's device: decode + padded NMS (whose suppression is the
+  CUDA kernel on the card); only the [B, max_det, 6] survivors leave it.
+
+The eval step belongs to the eval slice.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from typing import Callable
 
 import torch
 
+from podtpu_torch.losses import build_loss
 from podtpu_torch.ops.decode import decode_yolov3, layer_anchors
 from podtpu_torch.ops.nms import batched_class_aware_nms
 
@@ -93,3 +98,32 @@ def make_serve_fn(cfg: dict, apply_fn: Callable) -> Callable:
         return nms(decoder(apply_fn(x)))
 
     return serve
+
+
+def make_train_step(cfg: dict) -> Callable:
+    """``(state, batch) -> (state, {"loss"})`` for a
+    :class:`podtpu_torch.train.state.TrainState`, updated in place.
+
+    ``batch``: ``{"img": [B, H, W, 3] uint8 or float, "annot": [B, T, 5]}``
+    on the model's device. The BN running statistics move in the forward,
+    from the batch statistics of the parameters before the update."""
+    unported = [k for k in ("device_augment", "device_geom", "remat_policy",
+                            "remat_backbone", "ema") if cfg.get(k)]
+    if int(cfg.get("steps_per_dispatch") or 1) > 1:
+        unported.append("steps_per_dispatch")
+    if unported:
+        raise NotImplementedError(f"{unported} not ported yet (ROADMAP.md "
+                                  "queue 1, train-step options)")
+    loss_fn = build_loss(cfg)
+
+    def train_step(state, batch):
+        model = state.model
+        model.train()
+        preds = model(_as_input(batch["img"]))
+        loss = loss_fn(preds, batch["annot"])
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        return state, {"loss": loss.detach()}
+
+    return train_step

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from podtpu_torch.ops.kernels import stem_kernel as sk
 from podtpu_torch.ops.kernels.nms_kernel import (
     greedy_suppress,
     greedy_suppress_reference,
@@ -53,3 +54,90 @@ def test_suppress_kernel_rejects_non_contiguous(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         greedy_suppress(boxes, torch.ones(2, 8, dtype=torch.bool,
                                           device=cuda), 0.45)
+
+
+def _stem_operands(b, h, w, dtype, dev, seed=0):
+    r = np.random.default_rng(seed)
+    as_t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    x = as_t(r.random((b, h, w, 3))).to(dtype)
+    wt = as_t(r.normal(0.0, np.sqrt(2.0 / 27), (3, 3, 3, 32)))
+    scale, bias = as_t(r.uniform(0.5, 1.5, 32)), as_t(r.normal(0, 0.1, 32))
+    g = as_t(r.normal(0, 1, (b, h // 2, w // 2, 32))).to(dtype)
+    return x, wt, scale, bias, g
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w", [(2, 64, 64), (2, 416, 416), (3, 40, 70)])
+def test_stem_kernels_match_plain_versions(cuda, dtype, b, h, w):
+    """Each kernel against its plain version on the same operands: float32
+    to 1e-4 of the result's scale (TF32 off for the plain conv); bf16 sums
+    to 1e-3, the pooled output on all but 1e-3 of its elements within one
+    bf16 ulp at its scale, the backward by direction."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, wt, scale, bias, g = _stem_operands(b, h, w, dtype, cuda)
+    n = b * h * w
+    before = dict(sk.stem_fused.launches)
+    s_k, s_r = sk.stem_stats(x, wt), sk.stem_stats_reference(x, wt)
+    assert torch.equal(s_k, sk.stem_stats(x, wt))  # no atomics: same bits
+    mean = s_r[0] / n
+    var = (s_r[1] / n - mean * mean).clamp_min(0.0)
+    rinv = torch.rsqrt(var + 1e-5)
+    inv = rinv * scale
+    mul, add = inv.to(dtype).float(), (bias - mean * inv).to(dtype).float()
+    p_k = sk.stem_emit(x, wt, mul, add)
+    p_r = sk.stem_emit_reference(x, wt, mul, add)
+    u_k = sk.stem_bwd_sums(x, wt, mul, add, mean, rinv, g)
+    u_r = sk.stem_bwd_sums_reference(x, wt, mul, add, mean, rinv, g)
+    c0, c1 = u_r[0] / n, u_r[1] / n
+    d_k = sk.stem_bwd_dw(x, wt, mul, add, mean, rinv, inv, c0, c1, g)
+    d_r = sk.stem_bwd_dw_reference(x, wt, mul, add, mean, rinv, inv, c0, c1, g)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in sk.stem_fused.launches.items()} == {
+        "stats": 2, "emit": 1, "bwd_sums": 1, "bwd_dw": 1}
+    assert p_k.shape == (b, h // 2, w // 2, 32) and p_k.dtype == dtype
+    diff = (p_k.float() - p_r.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5
+        assert max(_rel(s_k, s_r), _rel(u_k, u_r), _rel(d_k, d_r)) <= 1e-4
+    else:
+        assert float((diff > 0).float().mean()) <= 1e-3
+        assert float(diff.max()) <= 2.0 ** -7 * float(p_r.float().abs().max())
+        assert _rel(s_k, s_r) <= 1e-3
+        for a, r in ((u_k, u_r), (d_k, d_r)):
+            a, r = a.double().flatten(), r.double().flatten()
+            assert float(a @ r / (a.norm() * r.norm())) >= 0.995
+
+
+@pytest.mark.cuda
+def test_train_step_launches_each_stem_kernel_once(cuda):
+    from podtpu_torch.data.loader import pad_annotations
+    from podtpu_torch.train.state import create_train_state
+    from podtpu_torch.train.steps import make_train_step
+
+    anchors = [[10, 13], [16, 30], [33, 23], [30, 61], [62, 45], [59, 119],
+               [116, 90], [156, 198], [373, 326]]
+    cfg = dict(model="yolov3", num_classes=20, anchors=anchors,
+               input_size=64, compute_dtype="bfloat16", optimizer="sgd",
+               optimizer_options={"lr": 1e-3, "momentum": 0.9,
+                                  "nesterov": True, "weight_decay": 1e-2})
+    state = create_train_state(cfg, cuda)
+    step = make_train_step(cfg)
+    r = np.random.default_rng(0)
+    batch = {"img": torch.from_numpy(r.integers(0, 256, (2, 64, 64, 3),
+                                                dtype=np.uint8)).to(cuda),
+             "annot": torch.from_numpy(pad_annotations(
+                 [np.array([[0.5, 0.5, 0.3, 0.4, 3]], np.float32)] * 2,
+                 8)).to(cuda)}
+    before = dict(sk.stem_fused.launches)
+    for _ in range(2):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(m["loss"])
+    assert {k: v - before[k] for k, v in sk.stem_fused.launches.items()} == {
+        k: 2 for k in before}
