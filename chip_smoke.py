@@ -25,7 +25,9 @@ Phases, each printing one JSON line and raising on failure:
    must fail those checks; then at the train step's B=64 in bf16 each
    kernel checked again and timed beside its bound, its plain version and
    the stock composition conv2d -> batch_norm(training) -> relu ->
-   max_pool2d;
+   max_pool2d; the two backward kernels (tensor cores) also beside the
+   first-generation kernels they replaced, timed in turns (old, new, new,
+   old) with the distance between their results;
 7. train: ``configs/yolov3_voc.yaml`` unchanged (416 px, bf16, batch 64),
    seeded weights carried in through the weight loader, a synthetic batch
    (uniform images, 8 boxes each), ``create_train_state`` and
@@ -49,6 +51,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -90,6 +93,28 @@ STEM_EPILOGUE_OPS = {"stats": 3, "emit": 4, "bwd_sums": 9, "bwd_dw": 10}
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: {"registers", "smem_bytes", "spill_bytes"}} from the output
+    of ``nvcc -Xptxas -v``; the kernel's name is cut out of the mangled
+    entry name, with its template arguments as ptxas spells them."""
+    report, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"\d([a-z][a-z_]*_kernel)(I\w+?E)?E", m.group(1))
+            name = (k.group(1) + (k.group(2) or "")) if k else m.group(1)
+            report[name] = {}
+        elif name and "spill" in ln:
+            report[name]["spill_bytes"] = sum(
+                int(v) for v in re.findall(r"(\d+) bytes spill", ln))
+        elif name and "registers" in ln:
+            report[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            report[name]["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return report
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -262,6 +287,10 @@ def stem_kernel_checks(sk, x, w, scale, bias, g, eps):
     d_r = sk.stem_bwd_dw_reference(x, w, *vecs, g)
     c["bwd_sums_rel"], c["bwd_dw_rel"] = rel_err(u_k, u_r), rel_err(d_k, d_r)
     c["bwd_sums_cos"], c["bwd_dw_cos"] = cosine(u_k, u_r), cosine(d_k, d_r)
+    c["bwd_sums_deterministic"] = bool(torch.equal(
+        u_k, sk.stem_bwd_sums(x, w, mul, add, mean, rinv, g)))
+    c["bwd_dw_deterministic"] = bool(torch.equal(
+        d_k, sk.stem_bwd_dw(x, w, *vecs, g)))
     torch.cuda.synchronize()
     bwd_rel = max(c["bwd_sums_rel"], c["bwd_dw_rel"])
     if dtype == torch.float32:
@@ -270,6 +299,7 @@ def stem_kernel_checks(sk, x, w, scale, bias, g, eps):
         bwd_ok = (bwd_rel <= t["bwd_rel"] and
                   min(c["bwd_sums_cos"], c["bwd_dw_cos"]) >= t["bwd_cos"])
     ok = (ok_emit and bwd_ok and c["stats_deterministic"]
+          and c["bwd_sums_deterministic"] and c["bwd_dw_deterministic"]
           and c["stats_rel"] <= t["stats"])
     err = {"stats": float((s_k - s_r).abs().max()),
            "emit": c["emit"]["max_abs"],
@@ -402,6 +432,24 @@ def stem_phase(dev, card):
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "bound_terms_ms": terms}
 
+    # the two backward kernels beside the first-generation kernels they
+    # replaced (conv and dW on the float32 pipes): timed in turns on this
+    # card, and how far the tensor cores' pre-activations move the results
+    new = {"bwd_sums": lambda: sk.stem_bwd_sums(*args["bwd_sums"]),
+           "bwd_dw": lambda: sk.stem_bwd_dw(*args["bwd_dw"])}
+    v1_vs_new = {}
+    for k, fn in new.items():
+        old = lambda k=k: sk.check_bwd_v1(k, x, w, *vecs, g)  # noqa: E731
+        turns = [cuda_ms(f, 20) for f in (old, fn, fn, old)]
+        got, was = fn(), old()
+        v1_vs_new[k] = {
+            "v1_ms": [turns[0], turns[3]], "ms": [turns[1], turns[2]],
+            "speedup": (turns[0] + turns[3]) / (turns[1] + turns[2]),
+            "rel": rel_err(got, was), "cos": cosine(got, was)}
+        if v1_vs_new[k]["speedup"] <= 1.0:
+            raise AssertionError(f"the tensor-core {k} is no faster than the "
+                                 f"kernel it replaced: {v1_vs_new[k]}")
+
     # the whole op, forward + backward: kernels, plain, stock composition
     def op(fn):
         tw, ts, tb = (t.clone().requires_grad_(True) for t in (w, scale, bias))
@@ -432,7 +480,8 @@ def stem_phase(dev, card):
                     "op's grads cosine >= 0.99 with the plain version in "
                     "float32 on the same bf16 inputs (bf16 pool ties); "
                     "each planted fault must fail one of these"},
-        "timing_B64_bf16": timing, "whole_op_B64_bf16": whole,
+        "timing_B64_bf16": timing, "bwd_v1_vs_new_B64_bf16": v1_vs_new,
+        "whole_op_B64_bf16": whole,
         "library_note": "no single PyTorch call computes the fused stem; "
                         "the stock composition is conv2d -> batch_norm("
                         "training) -> relu -> max_pool2d",
@@ -737,12 +786,14 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name in libs}
+    ptxas = {name: ptxas_report(build.build_log(name)) for name in libs}
     emit({"phase": "build", "seconds": round(build_s, 3),
           "libraries": {n: os.path.relpath(p, REPO) for n, p in libs.items()},
           "ptxas": ptxas})
+    tc = {k: v for k, v in ptxas["stem_fused"].items() if "bwd_tc" in k}
+    if len(tc) != 2 or any(v.get("spill_bytes", 1) for v in tc.values()):
+        raise AssertionError(f"the tensor-core backward kernels spill, or "
+                             f"are not two: {tc}")
 
     # the slice's config, model and weights (used by phases 3 and 4)
     cfg = get_configs(os.path.join(REPO, "configs", "yolov3_voc.yaml"))

@@ -20,21 +20,34 @@
 // [B, H, W, 32] conv output (708 MB in bf16 at B=64, 416 px): every pass
 // recomputes the conv from the 3-channel input (66 MB), so a pass moves
 // little more than its input, its [B, H/2, W/2, 32] pooled output or
-// cotangent (177 MB), and nothing else. That leaves the conv's 27 x 32
-// multiply-adds per pixel (19 GFLOP a pass at B=64) as the bound of this
-// design: it runs them on the f32 pipes (products of bf16 values are exact
-// in f32, as in the tensor cores), not on the tensor cores, which would
-// need the im2col tile to be staged for wgmma. The TPU kernel's MXU
-// formulation (block-diagonal weights, parity-split planar input) exists
-// for the TPU's matrix unit and is not carried over.
+// cotangent (177 MB), and nothing else: bytes bound every pass. What a
+// pass spends beyond that is arithmetic per conv output: the conv's 27 x
+// 32 multiply-adds (19 GFLOP a pass at B=64) and the float32 epilogue
+// (affine with two roundings, pool routing, xhat, d_pre, the sums).
 //
-// Design. A block owns a tile of 8 x 16 pooled pixels (16 x 32 conv
-// pixels) at a time and walks the tiles of the whole batch in a fixed
-// order (tile = blockIdx.x + k * gridDim.x; one wave of blocks). It stages
-// the tile's 18 x 34 x 3 input (with the conv's halo and zero padding) and
-// the 864 weights in shared memory; each of its 128 threads takes one
-// pooled pixel: the 4 x 4 x 3 input patch in registers, the four conv
-// outputs of its 2x2 window for 8 channels at a time.
+// Two generations of kernels live here.
+// * stats, emit, and every kernel in float32 run the conv on the f32
+//   pipes (fmaf in tap order; products of bf16 values are exact in f32).
+//   In float32 that is on purpose: on the tensor cores the product would
+//   be TF32. Their design is the first paragraph below.
+// * The two backward kernels in bf16 (bwd_tc_kernel) run both of their
+//   matrix products, the conv and dW = im2col^T x d_pre, on the bf16
+//   tensor cores (mma.sync m16n8k16, f32 accumulators) and keep the next
+//   tile's loads in flight (cp.async) while a tile is computed. What is
+//   left to bound them is the epilogue's instructions on the f32 pipes.
+//   Their design is the second paragraph. The first-generation bf16
+//   backward kernels stay compiled behind podtpu_stem_bwd_*_v1, for
+//   timing old against new on one card; nothing else calls them.
+// The TPU kernel's MXU formulation (block-diagonal weights, parity-split
+// planar input) exists for the TPU's matrix unit and is not carried over.
+//
+// Design, f32-pipe kernels. A block owns a tile of 8 x 16 pooled pixels
+// (16 x 32 conv pixels) at a time and walks the tiles of the whole batch
+// in a fixed order (tile = blockIdx.x + k * gridDim.x; one wave of
+// blocks). It stages the tile's 18 x 34 x 3 input (with the conv's halo
+// and zero padding) and the 864 weights in shared memory; each of its 128
+// threads takes one pooled pixel: the 4 x 4 x 3 input patch in registers,
+// the four conv outputs of its 2x2 window for 8 channels at a time.
 // * Reductions across blocks (stats, sums, dW) use no atomics: each thread
 //   keeps its sums in registers over all its tiles, the block adds its
 //   threads' sums in a fixed order into one row of a partial-sum buffer,
@@ -50,12 +63,130 @@
 //   stem_fused.py:156). The affine is two separately rounded operations
 //   (__fmul_rn, __fadd_rn), each rounded to T, as the plain x * mul + add
 //   rounds; the build's --fmad=false keeps nvcc from contracting them.
+//
+// Design, tensor-core backward (bf16). Same tiles, same walk, 4 warps.
+// * No im2col tile is built. The input tile is staged with 4 channels a
+//   pixel (the 4th zero), 8 bytes, twice: copy A, and copy B shifted by one
+//   pixel. For a fixed ky the taps (kx, ci) of conv pixel c are then the 16
+//   contiguous bf16 starting at staged pixel c of row r + ky, 16-byte
+//   aligned in A for even c and in B for odd c, so ldmatrix reads the
+//   im2col matrix straight from the staged input: K = 3 x 16 slots,
+//   k = ky * 16 + kx * 4 + ci, where the slots kx = 3 and ci = 3 carry
+//   zero weights (product 1) or fall into dW columns that are dropped
+//   (product 2). B lies 4 sixteen-byte bank groups beyond A, so the eight
+//   rows of every 8 x 8 matrix hit eight different groups.
+// * Channel-major products, so that product 1's accumulators are product
+//   2's A operand and d_pre never leaves registers. A warp takes units of
+//   2 conv rows x 8 columns (16 pixels = 4 pool windows):
+//     pre^T[32 ch x 16 px] = W^T[32 x 48] . im2col^T[48 x 16 px]
+//   then the epilogue on the accumulator fragments, where a thread holds,
+//   for its 4 channels (lane / 4 + 8 i), all four positions of one pool
+//   window (the register pair = dx, the two n8 tiles = dy), then
+//     dW^T[32 ch x 48] += d_pre^T[32 ch x 16 px] . im2col[16 px x 48]
+//   with the 32 x 48 f32 accumulators of the warp living in registers
+//   over all tiles of the block. The weights are A fragments in registers
+//   for the whole kernel.
+// * Loads: the raw input rows (16-byte chunks from the aligned-down row
+//   start; the staging pass removes each row's phase and applies the
+//   conv's zero padding) and the cotangent tile (8 KB, zero-filled outside
+//   the image) of tile k + 1 are started with cp.async into the other of
+//   two stages before tile k is staged and computed.
+// * Reductions as above, free of atomics: sums go through a fixed shuffle
+//   tree over the 4 lanes of a channel, then over the warps in order; the
+//   warps' dW accumulators are added in warp order; reduce_kernel adds the
+//   blocks' rows. mma accumulates in a fixed order, so two runs give the
+//   same bits.
+// * Rounding: the conv is rounded once to bf16 from the tensor core's f32
+//   accumulator (the MXU route of stem_fused.py:148-157). Its summation
+//   order differs from the fmaf route's, so a pre-activation may land on
+//   the neighbouring bf16 value now and then. The epilogue gives the
+//   f32-pipe kernels' values from fewer instructions: the affine on bf16
+//   pairs (mul.bf16x2, add.bf16x2: one rounding of an exact result each,
+//   which is what f32 arithmetic rounded to bf16 gives), the routing
+//   spelled for the one winner of a window, the per-channel constants in
+//   two 16-byte shared loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// A launch, as a macro so that a host-only build of this file against a
+// mock of the CUDA runtime (tools/cuda_mock) can run the kernels' logic on
+// CPU threads.
+#ifndef PODTPU_LAUNCH
+#define PODTPU_LAUNCH(kernel, grid, block, stream, ...) \
+  kernel<<<grid, block, 0, stream>>>(__VA_ARGS__)
+#endif
+
 namespace {
+
+// ---- PTX, one instruction per function -------------------------------------
+// The mock defines PODTPU_PTX_EMULATED and emulates each of these by its
+// documented fragment layout (lane -> row / column), so the indexing around
+// them can be rehearsed without a card.
+#ifndef PODTPU_PTX_EMULATED
+
+__device__ __forceinline__ unsigned int smem_addr(const void* p) {
+  return static_cast<unsigned int>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; the bytes beyond `bytes` (0..16)
+// are written as zeros and not read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8 x 8 matrices of 16-bit values. Lane l gives the address of the
+// 16-byte row l % 8 of matrix l / 8; r[m] receives, of matrix m, the
+// elements (row lane / 4, columns 2 * (lane % 4) and + 1).
+__device__ __forceinline__ void ldmatrix_x4(const void* row,
+                                            unsigned int (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(row)));
+}
+
+// The same, transposed: r[m] receives the elements (rows 2 * (lane % 4) and
+// + 1, column lane / 4).
+__device__ __forceinline__ void ldmatrix_x4_trans(const void* row,
+                                                  unsigned int (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(row)));
+}
+
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 operands, f32 accumulators.
+// With g = lane / 4, t = lane % 4: a[0..3] = (row g | g + 8 | g | g + 8,
+// columns 2t, 2t + 1 | same | + 8 | + 8); b0, b1 = (rows 2t, 2t + 1 | + 8,
+// column g); c[0..3] = (row g | g | g + 8 | g + 8, column 2t | 2t + 1 | ..).
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const unsigned int (&a)[4],
+                                         unsigned int b0, unsigned int b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float shfl_xor(float v, int lane_mask) {
+  return __shfl_xor_sync(0xffffffffu, v, lane_mask);
+}
+
+#endif  // PODTPU_PTX_EMULATED
 
 constexpr int kCi = 3;
 constexpr int kCo = 32;
@@ -577,6 +708,379 @@ bwd_dw_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// ---- backward in bf16: both products on the tensor cores -----------------
+
+constexpr int kWarps = kThreads / 32;          // 4
+constexpr int kSlots = 48;                     // K: ky * 16 + kx * 4 + ci
+constexpr int kStagePx = kIY * kIX;            // 612 staged pixels
+// a copy of the staged tile: 4 bf16 a pixel, and 4 pixels of zeros after
+// the last row, which the slots kx = 3 of its last pixels read. 616 * 8 B =
+// 308 sixteen-byte groups, 4 mod 8: copy B starts 4 bank groups after A.
+constexpr int kCopyPx = kStagePx + 4;
+constexpr int kRawChunks = 14;                 // 14 + 34 * 6 bytes <= 14 * 16
+constexpr int kRawRow = kRawChunks * 16;       // bytes of a raw input row
+constexpr int kRawBytes = kIY * kRawRow;       // 4032 a stage
+constexpr int kGBytes = kThreads * kCo * 2;    // 8192 a stage
+constexpr int kTcSmem =
+    2 * kCopyPx * 8 + 2 * kRawBytes + 2 * kGBytes + kCo * 32;  // + constants
+static_assert(kCopyPx * 8 % 128 == 64, "copy B must lie 4 bank groups off A");
+static_assert(kWarps * kCo * kSlots * 4 <= kTcSmem - kCo * 32,
+              "the warps' dW tiles are added through the staging buffers");
+
+// What the epilogue reads per channel, laid out for two 16-byte loads: the
+// four lanes of a channel read one address (a broadcast), the eight
+// channels of a warp-wide load 128 contiguous bytes.
+struct __align__(16) ChannelConsts {
+  float mean, rinv, inv, c1;
+  float c0;
+  __nv_bfloat162 mul2, add2;  // mul and add (bf16 values) as pairs
+  float unused;
+};
+static_assert(sizeof(ChannelConsts) == 32, "two float4 a channel");
+
+// The weight of slot k of row ky for channel ch: zero for kx = 3, ci = 3.
+__device__ __forceinline__ float slot_weight(const float* __restrict__ w,
+                                             int ky, int k, int ch) {
+  const int kx = k >> 2, ci = k & 3;
+  return (kx < 3 && ci < kCi) ? w[((ky * 3 + kx) * kCi + ci) * kCo + ch]
+                              : 0.0f;
+}
+
+// First byte of the raw row y of the tile's input window in x: image
+// columns from ca on.
+__device__ __forceinline__ const unsigned char* raw_row_start(
+    const __nv_bfloat16* __restrict__ x, const Shape& s, int img, int y,
+    int ca) {
+  return reinterpret_cast<const unsigned char*>(
+      x + ((static_cast<size_t>(img) * s.h + y) * s.w + ca) * kCi);
+}
+
+// Loads and staging share one map of threads onto the 18 x 34 input
+// window: thread i takes segment i % 7 of row i / 7 (126 threads), that is
+// two of the row's 14 chunks and five of its 34 (35) pixels.
+constexpr int kSegs = 7;
+static_assert(kSegs * 2 == kRawChunks && kSegs * 5 >= kIX &&
+                  kSegs * kIY <= kThreads,
+              "7 segments cover a row, 126 threads the window");
+
+// Start the loads of tile t into a stage: the raw input rows as 16-byte
+// chunks from each row's aligned-down start up to its last needed byte
+// (rows outside the image are skipped; the staging pass does not read
+// them), and the cotangent, 64 bytes a pooled pixel (one a thread), zeros
+// outside the image.
+__device__ __forceinline__ void start_tile_loads(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gout,
+    const Shape& s, const Tile& t, unsigned char* raw, unsigned char* gs) {
+  const int x0 = 2 * t.px0 - 1;
+  const int ca = x0 < 0 ? 0 : x0;
+  const int cb = x0 + kIX < s.w ? x0 + kIX : s.w;
+  const int r = threadIdx.x / kSegs, sg = threadIdx.x % kSegs;
+  const int y = 2 * t.py0 - 1 + r;
+  if (r < kIY && y >= 0 && y < s.h) {
+    const unsigned char* first = raw_row_start(x, s, t.img, y, ca);
+    const unsigned char* end = first + (cb - ca) * kCi * 2;
+    const unsigned char* src =
+        first - (reinterpret_cast<uintptr_t>(first) & 15) + sg * 32;
+    unsigned char* dst = raw + r * kRawRow + sg * 32;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const long long left = end - (src + c * 16);
+      if (left > 0)
+        cp_async16(dst + c * 16, src + c * 16,
+                   left < 16 ? static_cast<int>(left) : 16);
+    }
+  }
+  const int py = t.py0 + threadIdx.x / kTPX, px = t.px0 + threadIdx.x % kTPX;
+  const bool in = py < s.ph && px < s.pw;
+  const __nv_bfloat16* src =
+      in ? gout + ((static_cast<size_t>(t.img) * s.ph + py) * s.pw + px) * kCo
+         : gout;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    cp_async16(gs + threadIdx.x * 64 + c * 16, src + (in ? c * 8 : 0),
+               in ? 16 : 0);
+}
+
+// Raw rows -> the two 4-channel copies: xa[p] = staged pixel p (row p / 34,
+// column p % 34 of the input window, zero outside the image), xb[p] =
+// staged pixel p + 1.
+__device__ __forceinline__ void stage_tile(
+    const __nv_bfloat16* __restrict__ x, const Shape& s, const Tile& t,
+    const unsigned char* raw, uint2* xa, uint2* xb) {
+  const int r = threadIdx.x / kSegs, sg = threadIdx.x % kSegs;
+  if (r >= kIY) return;
+  const int x0 = 2 * t.px0 - 1;
+  const int ca = x0 < 0 ? 0 : x0;
+  const int y = 2 * t.py0 - 1 + r;
+  const bool row_in = y >= 0 && y < s.h;
+  // the row's bytes begin at its phase within the first chunk
+  const int phase =
+      row_in ? static_cast<int>(reinterpret_cast<uintptr_t>(
+                                    raw_row_start(x, s, t.img, y, ca)) & 15)
+             : 0;
+  const unsigned short* src =
+      reinterpret_cast<const unsigned short*>(raw + r * kRawRow + phase);
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int c = sg * 5 + i;
+    if (c >= kIX) break;
+    const int xc = x0 + c;
+    uint2 v = make_uint2(0u, 0u);
+    if (row_in && xc >= 0 && xc < s.w) {
+      const unsigned short* q = src + (xc - ca) * kCi;
+      v.x = static_cast<unsigned int>(q[0]) |
+            (static_cast<unsigned int>(q[1]) << 16);
+      v.y = q[2];
+    }
+    const int p = r * kIX + c;
+    xa[p] = v;
+    if (p > 0) xb[p - 1] = v;
+  }
+}
+
+// kDw = false: partials[blockIdx.x] = (sum d [32], sum d * xhat [32]);
+// kDw = true: partials[blockIdx.x][tap * 32 + co] = sum x[pixel + tap] *
+// bf16(inv * (d - c0 - xhat * c1)); both over the block's tiles.
+template <bool kDw>
+__global__ void __launch_bounds__(kThreads)
+bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ vec,
+              const __nv_bfloat16* __restrict__ gout, Shape s,
+              float* __restrict__ partials) {
+  __shared__ __align__(128) unsigned char sm[kTcSmem];
+  uint2* xa = reinterpret_cast<uint2*>(sm);
+  uint2* xb = xa + kCopyPx;
+  unsigned char* raw = sm + 2 * kCopyPx * 8;
+  unsigned char* gs = raw + 2 * kRawBytes;
+  ChannelConsts* cv = reinterpret_cast<ChannelConsts*>(gs + 2 * kGBytes);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  if (threadIdx.x < kCo) {
+    const int k = threadIdx.x;
+    ChannelConsts c;
+    c.mean = vec[kMean * kCo + k];
+    c.rinv = vec[kRinv * kCo + k];
+    c.inv = vec[kInv * kCo + k];
+    c.c1 = vec[kC1 * kCo + k];
+    c.c0 = vec[kC0 * kCo + k];
+    c.mul2 = __float2bfloat162_rn(vec[kMul * kCo + k]);  // bf16 values in f32
+    c.add2 = __float2bfloat162_rn(vec[kAdd * kCo + k]);
+    c.unused = 0.0f;
+    cv[k] = c;
+  }
+  for (int i = threadIdx.x; i < 2 * kCopyPx; i += kThreads)
+    xa[i] = make_uint2(0u, 0u);
+
+  // W^T as A fragments: wf[m][ky] is the 16 x 16 block of channels
+  // 16 m .. 16 m + 15 and the slots of row ky
+  unsigned int wf[2][3][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int ch = m * 16 + gid + (r & 1) * 8;
+        const int k = 2 * tig + (r >> 1) * 8;
+        wf[m][ky][r] = pack_bf16x2(slot_weight(w, ky, k, ch),
+                                   slot_weight(w, ky, k + 1, ch));
+      }
+
+  // ldmatrix: this lane addresses row lane % 8 of matrix lane / 8; matrix
+  // (rr, h) of a load holds slots 8 h .. 8 h + 7 of the 8 conv pixels of
+  // one staged row: staged pixels c0 + 2 h + (0..7), even ones in copy A,
+  // odd ones in copy B (xb[p - 1] = pixel p)
+  const int li = lane & 7, lh = (lane >> 3) & 1, lr = lane >> 4;
+  const uint2* lane_row = ((li & 1) ? xb - 1 : xa) + lr * kIX + li + 2 * lh;
+
+  float dw[2][6][4];   // dW^T [32 ch x 48 slots] of this warp (kDw)
+  float sum_d[4], sum_dx[4];  // this thread's 4 channels (!kDw)
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int nt = 0; nt < 6; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dw[m][nt][r] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sum_d[i] = sum_dx[i] = 0.0f;
+
+  // the grid has at most one block a tile: every block has a first tile
+  start_tile_loads(x, gout, s, tile_at(s, blockIdx.x), raw, gs);
+  cp_async_commit();
+
+  int stage = 0;
+  for (int t = blockIdx.x; t < s.tiles; t += gridDim.x, stage ^= 1) {
+    const Tile tl = tile_at(s, t);
+    cp_async_wait_all();  // this thread's loads of tile t have landed
+    __syncthreads();      // everyone's have; the previous tile is computed
+    if (t + gridDim.x < s.tiles)
+      start_tile_loads(x, gout, s, tile_at(s, t + gridDim.x),
+                       raw + (stage ^ 1) * kRawBytes,
+                       gs + (stage ^ 1) * kGBytes);
+    cp_async_commit();
+    stage_tile(x, s, tl, raw + stage * kRawBytes, xa, xb);
+    __syncthreads();
+    const unsigned short* gst =
+        reinterpret_cast<const unsigned short*>(gs + stage * kGBytes);
+
+    // units of 2 conv rows x 8 conv columns: pooled row j, pooled columns
+    // 4 cg .. 4 cg + 3; this thread's pool window is (j, 4 cg + tig)
+    // (two units in flight pay off only where registers allow: the sums)
+#pragma unroll(kDw ? 1 : 2)
+    for (int u = 0; u < 8; ++u) {
+      const int j = 2 * warp + (u >> 2), cg = u & 3;
+      // a pool window outside the image (ragged tiles) has a zero
+      // cotangent, which adds nothing to the sums, and gets a zero d_pre
+      [[maybe_unused]] const bool inside =
+          tl.py0 + j < s.ph && tl.px0 + 4 * cg + tig < s.pw;
+      const uint2* rows = lane_row + 2 * j * kIX + 8 * cg;
+
+      // product 1: nb[rr][h] = slots 8 h.. of staged row 2 j + rr
+      unsigned int nb[4][2];
+      {
+        unsigned int r4[4];
+        ldmatrix_x4(rows, r4);
+        nb[0][0] = r4[0]; nb[0][1] = r4[1]; nb[1][0] = r4[2]; nb[1][1] = r4[3];
+        ldmatrix_x4(rows + 2 * kIX, r4);
+        nb[2][0] = r4[0]; nb[2][1] = r4[1]; nb[3][0] = r4[2]; nb[3][1] = r4[3];
+      }
+      float acc[2][2][4];  // [m][dy]: channels 16 m + gid (+ 8), columns dx
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int dy = 0; dy < 2; ++dy) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[m][dy][r] = 0.0f;
+#pragma unroll
+          for (int ky = 0; ky < 3; ++ky)
+            mma_bf16(acc[m][dy], wf[m][ky], nb[dy + ky][0], nb[dy + ky][1]);
+        }
+
+      // epilogue on the fragments; af[m] = d_pre^T as product 2's A
+      unsigned int af[2][4];
+      const unsigned short* gp = gst + ((j * kTPX + 4 * cg + tig) * kCo);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = i >> 1, hf = i & 1;
+        const int k = gid + 8 * i;
+        const float gv = __uint_as_float(static_cast<unsigned int>(gp[k]) << 16);
+        float pre[4], y[4];
+        // pre rounded once to bf16, then bn_apply() on pairs. Each packed
+        // operation rounds its exact result once; f32 arithmetic rounded to
+        // bf16 gives the same value: the product of two bf16 values is
+        // exact in f32, and so is their sum unless one is below 2^-16 of
+        // the other, too small to move either rounding
+        const ChannelConsts cc = cv[k];
+#pragma unroll
+        for (int dy = 0; dy < 2; ++dy) {
+          const __nv_bfloat162 p2 = __floats2bfloat162_rn(
+              acc[m][dy][2 * hf], acc[m][dy][2 * hf + 1]);
+          const __nv_bfloat162 y2 = __hadd2_rn(__hmul2_rn(p2, cc.mul2), cc.add2);
+          pre[2 * dy] = __low2float(p2);
+          pre[2 * dy + 1] = __high2float(p2);
+          y[2 * dy] = __low2float(y2);
+          y[2 * dy + 1] = __high2float(y2);
+        }
+        // route(), spelled for one winner: the cotangent passes only if the
+        // window's max is positive, and then to the first y equal to it
+        const float top = fmaxf(fmaxf(y[0], y[1]), fmaxf(y[2], y[3]));
+        const float gw = top > 0.0f ? gv : 0.0f;
+        const bool w0 = y[0] == top;
+        const bool w1 = !w0 && y[1] == top;
+        const bool w2 = !w0 && !w1 && y[2] == top;
+        if constexpr (kDw) {
+          // d - c0 is gw - c0 at the winner and -c0 elsewhere
+          const float at_w = __fsub_rn(gw, cc.c0), off_w = -cc.c0;
+          const bool w3 = !w0 && !w1 && !w2;
+          const bool wins[4] = {w0, w1, w2, w3};
+          float dq[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float xh = __fmul_rn(__fsub_rn(pre[q], cc.mean), cc.rinv);
+            const float inner =
+                __fsub_rn(wins[q] ? at_w : off_w, __fmul_rn(xh, cc.c1));
+            dq[q] = __fmul_rn(cc.inv, inner);
+          }
+          // pooled pixels outside the image give no d_pre
+          af[m][hf] = inside ? pack_bf16x2(dq[0], dq[1]) : 0u;      // dy = 0
+          af[m][2 + hf] = inside ? pack_bf16x2(dq[2], dq[3]) : 0u;  // dy = 1
+        } else {
+          // adding the three zeros of d and their products changes nothing
+          const float pre_w = w0 ? pre[0] : w1 ? pre[1] : w2 ? pre[2] : pre[3];
+          const float xh = __fmul_rn(__fsub_rn(pre_w, cc.mean), cc.rinv);
+          sum_d[i] += gw;
+          sum_dx[i] = fmaf(gw, xh, sum_dx[i]);
+        }
+      }
+
+      // product 2: slots 8 nt .. 8 nt + 7 are row ky = nt / 2, half nt % 2;
+      // the unit's pixels 0..7 are conv row 2 j, 8..15 conv row 2 j + 1
+      if constexpr (kDw) {
+        unsigned int tb[4][2];
+        unsigned int r4[4];
+        ldmatrix_x4_trans(rows, r4);
+        tb[0][0] = r4[0]; tb[0][1] = r4[1]; tb[1][0] = r4[2]; tb[1][1] = r4[3];
+        ldmatrix_x4_trans(rows + 2 * kIX, r4);
+        tb[2][0] = r4[0]; tb[2][1] = r4[1]; tb[3][0] = r4[2]; tb[3][1] = r4[3];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int nt = 0; nt < 6; ++nt)
+            mma_bf16(dw[m][nt], af[m], tb[nt >> 1][nt & 1],
+                     tb[(nt >> 1) + 1][nt & 1]);
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // the staging buffers are free: the sums go through them
+
+  float* red = reinterpret_cast<float*>(sm);
+  if constexpr (kDw) {
+    // the warps' tiles side by side, then added in warp order
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int nt = 0; nt < 6; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int ch = m * 16 + gid + (r >> 1) * 8;
+          const int n = nt * 8 + 2 * tig + (r & 1);
+          red[(warp * kCo + ch) * kSlots + n] = dw[m][nt][r];
+        }
+    __syncthreads();
+    float* out = partials + static_cast<size_t>(blockIdx.x) * kTaps * kCo;
+    for (int o = threadIdx.x; o < kTaps * kCo; o += kThreads) {
+      const int tap = o / kCo, co = o % kCo;
+      const int n = (tap / 9) * 16 + ((tap % 9) / kCi) * 4 + tap % kCi;
+      float sum = 0.0f;
+      for (int wp = 0; wp < kWarps; ++wp)
+        sum += red[(wp * kCo + co) * kSlots + n];
+      out[o] = sum;
+    }
+  } else {
+    // the 4 lanes of a channel in a fixed tree, then the warps in order
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sum_d[i] += shfl_xor(sum_d[i], 1);
+      sum_d[i] += shfl_xor(sum_d[i], 2);
+      sum_dx[i] += shfl_xor(sum_dx[i], 1);
+      sum_dx[i] += shfl_xor(sum_dx[i], 2);
+      if (tig == 0) {
+        red[warp * 2 * kCo + gid + 8 * i] = sum_d[i];
+        red[warp * 2 * kCo + kCo + gid + 8 * i] = sum_dx[i];
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < 2 * kCo) {
+      float sum = 0.0f;
+      for (int wp = 0; wp < kWarps; ++wp)
+        sum += red[wp * 2 * kCo + threadIdx.x];
+      partials[static_cast<size_t>(blockIdx.x) * 2 * kCo + threadIdx.x] = sum;
+    }
+  }
+}
+
 // out[c] = sum over r < rows of partials[r * cols + c], in a fixed order:
 // 8 row slices of 32 columns per block, then the slices in order.
 __global__ void __launch_bounds__(256)
@@ -620,7 +1124,8 @@ cudaError_t grid_for(K kernel, const Shape& s, int max_blocks, int* nblk) {
 
 cudaError_t reduce(const float* partials, int rows, int cols, float* out,
                    cudaStream_t stream) {
-  reduce_kernel<<<(cols + 31) / 32, 256, 0, stream>>>(partials, rows, cols, out);
+  PODTPU_LAUNCH(reduce_kernel, (cols + 31) / 32, 256, stream, partials, rows,
+                cols, out);
   return cudaGetLastError();
 }
 
@@ -635,8 +1140,8 @@ int stats(const void* x, const void* w, void* partials, int max_blocks,
   int nblk = 0;
   cudaError_t err = grid_for(stats_kernel<T>, s, max_blocks, &nblk);
   if (err != cudaSuccess) return static_cast<int>(err);
-  stats_kernel<T><<<nblk, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w), s,
+  PODTPU_LAUNCH(stats_kernel<T>, nblk, kThreads, stream,
+                static_cast<const T*>(x), static_cast<const float*>(w), s,
       static_cast<float*>(partials));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -651,46 +1156,56 @@ int emit(const void* x, const void* w, const void* vec, void* out, int b,
   int nblk = 0;
   cudaError_t err = grid_for(emit_kernel<T>, s, 1 << 30, &nblk);
   if (err != cudaSuccess) return static_cast<int>(err);
-  emit_kernel<T><<<nblk, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
+  PODTPU_LAUNCH(emit_kernel<T>, nblk, kThreads, stream,
+                static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(vec), s, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int bwd_sums(const void* x, const void* w, const void* vec, const void* g,
-             void* partials, int max_blocks, void* out, int b, int h, int wd,
-             cudaStream_t stream) {
+// A backward kernel (one row of `cols` partial sums per block), then the
+// fixed-order sum of the rows.
+template <typename T, typename K>
+int bwd_pass(K kernel, int cols, const void* x, const void* w, const void* vec,
+             const void* g, void* partials, int max_blocks, void* out, int b,
+             int h, int wd, cudaStream_t stream) {
   const Shape s = make_shape(b, h, wd);
   int nblk = 0;
-  cudaError_t err = grid_for(bwd_sums_kernel<T>, s, max_blocks, &nblk);
+  cudaError_t err = grid_for(kernel, s, max_blocks, &nblk);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_sums_kernel<T><<<nblk, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(vec), static_cast<const T*>(g), s,
-      static_cast<float*>(partials));
+  PODTPU_LAUNCH(kernel, nblk, kThreads, stream, static_cast<const T*>(x),
+                static_cast<const float*>(w), static_cast<const float*>(vec),
+                static_cast<const T*>(g), s, static_cast<float*>(partials));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce(static_cast<const float*>(partials), nblk,
-                                 2 * kCo, static_cast<float*>(out), stream));
+                                 cols, static_cast<float*>(out), stream));
 }
 
-template <typename T>
-int bwd_dw(const void* x, const void* w, const void* vec, const void* g,
-           void* partials, int max_blocks, void* out, int b, int h, int wd,
-           cudaStream_t stream) {
-  const Shape s = make_shape(b, h, wd);
-  int nblk = 0;
-  cudaError_t err = grid_for(bwd_dw_kernel<T>, s, max_blocks, &nblk);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dw_kernel<T><<<nblk, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(vec), static_cast<const T*>(g), s,
-      static_cast<float*>(partials));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(reduce(static_cast<const float*>(partials), nblk,
-                                 kTaps * kCo, static_cast<float*>(out), stream));
+// Which kernels a backward entry point runs: the tensor-core design (bf16
+// only), or the f32-pipe design (float32 always, bf16 behind *_v1).
+enum class Route { kTensorCores, kF32Pipes };
+
+int bwd_entry(bool dw, Route route, const void* x, const void* w,
+              const void* vec, const void* g, void* partials, int max_blocks,
+              void* out, int b, int h, int wd, int bf16, void* stream) {
+  if (bad_shape(b, h, wd) || max_blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int cols = dw ? kTaps * kCo : 2 * kCo;
+#define PODTPU_BWD(T, kernel) \
+  bwd_pass<T>(kernel, cols, x, w, vec, g, partials, max_blocks, out, b, h, wd, st)
+  if (!bf16)
+    return dw ? PODTPU_BWD(float, bwd_dw_kernel<float>)
+              : PODTPU_BWD(float, bwd_sums_kernel<float>);
+  if (route == Route::kF32Pipes)
+    return dw ? PODTPU_BWD(__nv_bfloat16, bwd_dw_kernel<__nv_bfloat16>)
+              : PODTPU_BWD(__nv_bfloat16, bwd_sums_kernel<__nv_bfloat16>);
+  // cp.async moves 16-byte chunks from 16-byte aligned addresses
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return dw ? PODTPU_BWD(__nv_bfloat16, bwd_tc_kernel<true>)
+            : PODTPU_BWD(__nv_bfloat16, bwd_tc_kernel<false>);
+#undef PODTPU_BWD
 }
 
 }  // namespace
@@ -727,24 +1242,35 @@ extern "C" int podtpu_stem_bwd_sums(const void* x, const void* w,
                                     void* partials, int max_blocks, void* out,
                                     int b, int h, int wd, int bf16,
                                     void* stream) {
-  if (bad_shape(b, h, wd) || max_blocks <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? bwd_sums<__nv_bfloat16>(x, w, vec, g, partials, max_blocks, out,
-                                        b, h, wd, st)
-              : bwd_sums<float>(x, w, vec, g, partials, max_blocks, out, b, h,
-                                wd, st);
+  return bwd_entry(false, Route::kTensorCores, x, w, vec, g, partials,
+                   max_blocks, out, b, h, wd, bf16, stream);
 }
 
 extern "C" int podtpu_stem_bwd_dw(const void* x, const void* w, const void* vec,
                                   const void* g, void* partials, int max_blocks,
                                   void* out, int b, int h, int wd, int bf16,
                                   void* stream) {
-  if (bad_shape(b, h, wd) || max_blocks <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? bwd_dw<__nv_bfloat16>(x, w, vec, g, partials, max_blocks, out,
-                                      b, h, wd, st)
-              : bwd_dw<float>(x, w, vec, g, partials, max_blocks, out, b, h, wd,
-                              st);
+  return bwd_entry(true, Route::kTensorCores, x, w, vec, g, partials,
+                   max_blocks, out, b, h, wd, bf16, stream);
+}
+
+// The first-generation backward kernels in bf16 too (the conv and dW on the
+// f32 pipes), kept for timing them against the tensor-core kernels on one
+// card. In float32 they are the kernels the entry points above run.
+extern "C" int podtpu_stem_bwd_sums_v1(const void* x, const void* w,
+                                       const void* vec, const void* g,
+                                       void* partials, int max_blocks,
+                                       void* out, int b, int h, int wd,
+                                       int bf16, void* stream) {
+  return bwd_entry(false, Route::kF32Pipes, x, w, vec, g, partials,
+                   max_blocks, out, b, h, wd, bf16, stream);
+}
+
+extern "C" int podtpu_stem_bwd_dw_v1(const void* x, const void* w,
+                                     const void* vec, const void* g,
+                                     void* partials, int max_blocks, void* out,
+                                     int b, int h, int wd, int bf16,
+                                     void* stream) {
+  return bwd_entry(true, Route::kF32Pipes, x, w, vec, g, partials,
+                   max_blocks, out, b, h, wd, bf16, stream);
 }

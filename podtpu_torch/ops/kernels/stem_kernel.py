@@ -18,6 +18,14 @@ pooled and its cotangent are NHWC ``[B, H/2, W/2, 32]``.
   :func:`stem_bwd_dw` — one wrapper per kernel: a CUDA tensor launches the
   kernel (or the call raises), a CPU tensor runs its plain version
   (``*_reference``).
+  In bf16 the two backward wrappers launch the tensor-core kernels
+  (``bwd_tc_kernel``); :func:`check_bwd_v1` launches the first-generation
+  bf16 kernels they replaced, for timing and comparing the two on one card,
+  and nothing else may call it.
+* :func:`stem_bwd_sums_im2col`, :func:`stem_bwd_dw_im2col` — the two
+  backward passes written as the tensor-core kernels compute them (an
+  im2col matrix with zero-padded tap columns, two matrix products); the
+  tests hold them against the plain versions.
 * :func:`stem_pool_reference_torch` — the plain PyTorch version of the
   whole op (compute-dtype conv, float32 batch statistics, folded affine,
   ReLU, ``max_pool2d``; autograd's backward). It mirrors ``podtpu``'s
@@ -30,6 +38,7 @@ pooled and its cotangent are NHWC ``[B, H/2, W/2, 32]``.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +57,8 @@ _ARGTYPES = {
     "bwd_sums": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "bwd_dw": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
 }
+_ARGTYPES["bwd_sums_v1"] = _ARGTYPES["bwd_sums"]
+_ARGTYPES["bwd_dw_v1"] = _ARGTYPES["bwd_dw"]
 
 
 def _kernel(name: str):
@@ -174,6 +185,48 @@ def stem_bwd_dw_reference(x, w, mul, add, mean, rinv, inv, c0, c1, g
     return dw.permute(2, 3, 1, 0).contiguous()
 
 
+def _im2col(x: torch.Tensor) -> torch.Tensor:
+    """[B * H * W, 32]: the 3x3 patch of every pixel with zero padding, taps
+    in (ky, kx, ci) order, and 5 zero columns after the 27 taps."""
+    b, h, w, _ = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = [xp[:, ky:ky + h, kx:kx + w, :] for ky in range(3)
+            for kx in range(3)]
+    cols.append(x.new_zeros((b, h, w, 32 - 9 * CI)))
+    return torch.cat(cols, dim=-1).reshape(b * h * w, 32)
+
+
+def _im2col_pre(x, w):
+    """(im2col, pre NCHW): the conv as one float32 product of the im2col
+    matrix with the [32, 32] weights (5 zero rows), rounded once."""
+    b, h, wd, _ = x.shape
+    col = _im2col(x)
+    w32 = torch.cat([w.to(x.dtype).reshape(9 * CI, CO),
+                     w.new_zeros((32 - 9 * CI, CO), dtype=x.dtype)])
+    pre = (col.float() @ w32.float()).to(x.dtype)
+    return col, pre.reshape(b, h, wd, CO).permute(0, 3, 1, 2)
+
+
+def stem_bwd_sums_im2col(x, w, mul, add, mean, rinv, g) -> torch.Tensor:
+    """:func:`stem_bwd_sums_reference` with the conv as an im2col product."""
+    _, pre = _im2col_pre(x, w)
+    d = _routed(_affine(pre, mul, add), g)
+    return torch.stack([d.sum(dim=(0, 2, 3)),
+                        (d * _xhat(pre, mean, rinv)).sum(dim=(0, 2, 3))])
+
+
+def stem_bwd_dw_im2col(x, w, mul, add, mean, rinv, inv, c0, c1, g
+                       ) -> torch.Tensor:
+    """:func:`stem_bwd_dw_reference` as two products: the conv, and
+    dW = im2col^T @ d_pre in float32 with the zero tap columns dropped."""
+    col, pre = _im2col_pre(x, w)
+    d = _routed(_affine(pre, mul, add), g)
+    v = lambda t: t[:, None, None]  # noqa: E731
+    dpre = (v(inv) * (d - v(c0) - _xhat(pre, mean, rinv) * v(c1))).to(x.dtype)
+    dw = col.float().T @ dpre.permute(0, 2, 3, 1).reshape(-1, CO).float()
+    return dw[:9 * CI].reshape(3, 3, CI, CO).contiguous()
+
+
 def stem_pool_reference_torch(x, w, scale, bias, eps: float,
                               dtype: torch.dtype):
     """Plain ConvBnAct(32, 3) + max_pool_2x2 in train mode.
@@ -235,8 +288,11 @@ def _launch_emit(x, w, mul, add) -> torch.Tensor:
     return out
 
 
-def _launch_bwd(name, x, w, vec, g, cols) -> torch.Tensor:
+def _launch_bwd(name, x, w, vec, g, cols, counted=True) -> torch.Tensor:
     b, h, wd, _ = x.shape
+    if x.data_ptr() % 16 or g.data_ptr() % 16:
+        # the kernels move x and g in 16-byte pieces
+        raise ValueError(f"stem_fused {name}: x and g must be 16-byte aligned")
     partials = torch.empty((MAX_BLOCKS, cols), dtype=torch.float32,
                            device=x.device)
     out = torch.empty((cols,), dtype=torch.float32, device=x.device)
@@ -247,7 +303,8 @@ def _launch_bwd(name, x, w, vec, g, cols) -> torch.Tensor:
                             out.data_ptr(), b, h, wd,
                             int(x.dtype == torch.bfloat16), _stream(x))
     _raise_on(err, name)
-    stem_fused.launches[name] += 1
+    if counted:
+        stem_fused.launches[name] += 1
     return out
 
 
@@ -310,6 +367,25 @@ def stem_bwd_dw(x, w, mul, add, mean, rinv, inv, c0, c1, g) -> torch.Tensor:
     _check_cuda("stem_bwd_dw", x, w, mul, add, mean, rinv, inv, c0, c1, g)
     vec = _vec7(mul, add, mean, rinv, inv, c0, c1)
     return _launch_bwd("bwd_dw", x, w, vec, g, 9 * CI * CO).view(3, 3, CI, CO)
+
+
+def check_bwd_v1(name, x, w, mul, add, mean, rinv, inv, c0, c1, g):
+    """``name`` = "bwd_sums" or "bwd_dw": that pass ([2, 32] or
+    [3, 3, 3, 32]) from the first-generation backward kernels (conv and dW
+    on the float32 pipes in bf16 too), which :func:`stem_bwd_sums` and
+    :func:`stem_bwd_dw` launched before their bf16 path moved to the tensor
+    cores. For timing and comparing old and new on one card; not counted in
+    ``stem_fused.launches``."""
+    _check_x(x)
+    _check_w(w)
+    _check_vec(mul=mul, add=add, mean=mean, rinv=rinv, inv=inv, c0=c0, c1=c1)
+    _check_g(g, x)
+    _check_cuda("check_bwd_v1", x, w, mul, add, mean, rinv, inv, c0, c1, g)
+    vec = _vec7(mul, add, mean, rinv, inv, c0, c1)
+    shape = {"bwd_sums": (2, CO), "bwd_dw": (3, 3, CI, CO)}[name]
+    out = _launch_bwd(name + "_v1", x, w, vec, g, math.prod(shape),
+                      counted=False)
+    return out.view(shape)
 
 
 # ---- the op ---------------------------------------------------------------

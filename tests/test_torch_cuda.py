@@ -97,9 +97,13 @@ def test_stem_kernels_match_plain_versions(cuda, dtype, b, h, w):
     c0, c1 = u_r[0] / n, u_r[1] / n
     d_k = sk.stem_bwd_dw(x, wt, mul, add, mean, rinv, inv, c0, c1, g)
     d_r = sk.stem_bwd_dw_reference(x, wt, mul, add, mean, rinv, inv, c0, c1, g)
+    # fixed-order reductions and mma's fixed accumulation order: same bits
+    assert torch.equal(u_k, sk.stem_bwd_sums(x, wt, mul, add, mean, rinv, g))
+    assert torch.equal(d_k, sk.stem_bwd_dw(x, wt, mul, add, mean, rinv, inv,
+                                           c0, c1, g))
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in sk.stem_fused.launches.items()} == {
-        "stats": 2, "emit": 1, "bwd_sums": 1, "bwd_dw": 1}
+        "stats": 2, "emit": 1, "bwd_sums": 2, "bwd_dw": 2}
     assert p_k.shape == (b, h // 2, w // 2, 32) and p_k.dtype == dtype
     diff = (p_k.float() - p_r.float()).abs()
     if dtype == torch.float32:
@@ -112,6 +116,69 @@ def test_stem_kernels_match_plain_versions(cuda, dtype, b, h, w):
         for a, r in ((u_k, u_r), (d_k, d_r)):
             a, r = a.double().flatten(), r.double().flatten()
             assert float(a @ r / (a.norm() * r.norm())) >= 0.995
+
+
+def _bwd_vectors(x, wt, scale, bias, g):
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    s_r = sk.stem_stats_reference(x, wt)
+    mean = s_r[0] / n
+    var = (s_r[1] / n - mean * mean).clamp_min(0.0)
+    rinv = torch.rsqrt(var + 1e-5)
+    inv = rinv * scale
+    mul = inv.to(x.dtype).float()
+    add = (bias - mean * inv).to(x.dtype).float()
+    u_r = sk.stem_bwd_sums_reference(x, wt, mul, add, mean, rinv, g)
+    return (mul, add, mean, rinv, inv, u_r[0] / n, u_r[1] / n), u_r
+
+
+def _cos(a, r):
+    a, r = a.double().flatten(), r.double().flatten()
+    return float(a @ r / (a.norm() * r.norm()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(2, 64, 64), (2, 416, 416), (3, 40, 70),
+                                   (8, 416, 416)])
+def test_tensor_core_backward_matches_first_generation(cuda, b, h, w):
+    """bf16: the tensor-core backward kernels against the first-generation
+    kernels they replaced (the conv summed by fmaf in tap order). The two
+    differ only where a pre-activation rounds to the neighbouring bf16
+    value: cosine >= 0.9999 and 2e-3 of the max, the limit the kernels are
+    held to against their plain versions. At (8, 416, 416) a block walks
+    several tiles (2,704 tiles over one wave of blocks), so the dW
+    accumulators that live in registers across tiles and both load stages
+    are exercised; there the plain versions are compared too."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, wt, scale, bias, g = _stem_operands(b, h, w, torch.bfloat16, cuda, 1)
+    vecs, u_r = _bwd_vectors(x, wt, scale, bias, g)
+    before = dict(sk.stem_fused.launches)
+    u_k = sk.stem_bwd_sums(x, wt, *vecs[:4], g)
+    d_k = sk.stem_bwd_dw(x, wt, *vecs, g)
+    u_1 = sk.check_bwd_v1("bwd_sums", x, wt, *vecs, g)
+    d_1 = sk.check_bwd_v1("bwd_dw", x, wt, *vecs, g)
+    torch.cuda.synchronize()
+    # the first-generation kernels are not the main path's: not counted
+    assert {k: v - before[k] for k, v in sk.stem_fused.launches.items()} == {
+        "stats": 0, "emit": 0, "bwd_sums": 1, "bwd_dw": 1}
+    for got, was in ((u_k, u_1), (d_k, d_1)):
+        assert got.shape == was.shape
+        assert _rel(got, was) <= 2e-3
+        assert _cos(got, was) >= 0.9999
+    if b == 8:
+        d_r = sk.stem_bwd_dw_reference(x, wt, *vecs, g)
+        for got, want in ((u_k, u_r), (d_k, d_r)):
+            assert _rel(got, want) <= 2e-3
+            assert _cos(got, want) >= 0.995
+
+
+@pytest.mark.cuda
+def test_backward_kernels_reject_misaligned_tensors(cuda):
+    x, wt, scale, bias, g = _stem_operands(2, 16, 16, torch.bfloat16, cuda)
+    vecs, _ = _bwd_vectors(x, wt, scale, bias, g)
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=cuda)
+    off = flat[1:].view_as(x).copy_(x)    # contiguous, 2 bytes off alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sk.stem_bwd_sums(off, wt, *vecs[:4], g)
 
 
 @pytest.mark.cuda

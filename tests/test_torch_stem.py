@@ -253,3 +253,126 @@ def test_eval_mode_never_reaches_the_stem_op(monkeypatch):
     assert calls == []
     fused.train()(x)
     assert calls == [1]
+
+
+# ---- the backward as the tensor-core kernels compute it -------------------
+
+def _bwd_operands(shape, dtype, seed=3):
+    """numpy-seeded operands of the two backward passes at (B, H, W): images
+    in [0, 1), He-normal weights, the BN vectors from the plain statistics
+    and a normal pooled cotangent."""
+    b, h, w = shape
+    r = np.random.default_rng(seed)
+    as_t = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    x = as_t(r.random((b, h, w, CI))).to(dtype)
+    wt = as_t(r.normal(0.0, np.sqrt(2.0 / 27), (3, 3, CI, CO)))
+    scale, bias = as_t(r.uniform(0.5, 1.5, CO)), as_t(r.normal(0, 0.1, CO))
+    g = as_t(r.normal(0, 1, (b, h // 2, w // 2, CO))).to(dtype)
+    n = b * h * w
+    s = stem_kernel.stem_stats_reference(x, wt)
+    mean = s[0] / n
+    var = (s[1] / n - mean * mean).clamp_min(0.0)
+    rinv = torch.rsqrt(var + EPS)
+    inv = rinv * scale
+    mul, add = inv.to(dtype).float(), (bias - mean * inv).to(dtype).float()
+    return x, wt, g, n, (mul, add, mean, rinv), inv
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+@pytest.mark.parametrize("cdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 16, 16), (2, 24, 40), (3, 40, 70)])
+def test_im2col_backward_equals_plain_versions(cdtype, shape):
+    """The two backward passes as matrix products over an im2col matrix
+    (32 tap columns, 5 of them zero), the arithmetic of the tensor-core
+    kernels, against the plain versions (F.conv2d, conv2d_weight): float32
+    within 1e-5 of the result's max (another summation order); bf16 within
+    the card checks' limits, cosine >= 0.995 and 2e-3 of the max (a
+    pre-activation may round to the neighbouring bf16 value)."""
+    dt = TORCH_DTYPE[cdtype]
+    x, wt, g, n, vecs, inv = _bwd_operands(shape, dt)
+    u_r = stem_kernel.stem_bwd_sums_reference(x, wt, *vecs, g)
+    u_i = stem_kernel.stem_bwd_sums_im2col(x, wt, *vecs, g)
+    c0, c1 = u_r[0] / n, u_r[1] / n
+    d_r = stem_kernel.stem_bwd_dw_reference(x, wt, *vecs, inv, c0, c1, g)
+    d_i = stem_kernel.stem_bwd_dw_im2col(x, wt, *vecs, inv, c0, c1, g)
+    assert d_i.shape == (3, 3, CI, CO) and u_i.shape == (2, CO)
+    for got, want in ((u_i, u_r), (d_i, d_r)):
+        if cdtype == "float32":
+            assert _rel(got, want) <= 1e-5
+        else:
+            assert _rel(got, want) <= 2e-3
+            assert _cosine(got.numpy(), want.numpy()) >= 0.995
+
+
+def test_im2col_matrix_layout():
+    """Row (b, y, x) of the im2col matrix holds the zero-padded 3x3 patch
+    in (ky, kx, ci) order, then 5 zeros."""
+    x = torch.arange(2 * 4 * 6 * CI, dtype=torch.float32).reshape(2, 4, 6, CI)
+    col = stem_kernel._im2col(x)
+    assert col.shape == (2 * 4 * 6, 32)
+    assert torch.equal(col[:, 27:], torch.zeros(48, 5))
+    row = col[(1 * 4 + 2) * 6 + 0]          # image 1, y = 2, x = 0
+    assert torch.equal(row[0:3], torch.zeros(3))           # (ky 0, kx 0): pad
+    assert torch.equal(row[3:6], x[1, 1, 0])               # (ky 0, kx 1)
+    assert torch.equal(row[12:15], x[1, 2, 0])             # the centre tap
+    assert torch.equal(row[24:27], x[1, 3, 1])             # (ky 2, kx 2)
+
+
+class _Im2colStem(torch.autograd.Function):
+    """The whole op with the backward built from the im2col passes, as
+    ``StemPoolFunction`` builds it from the kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias):
+        pooled, mean, var = stem_pool_reference_torch(x, w, scale, bias, EPS,
+                                                      x.dtype)
+        inv = torch.rsqrt(var + EPS) * scale
+        ctx.save_for_backward(x, w, inv, bias, mean, var)
+        ctx.mark_non_differentiable(mean, var)
+        return pooled.detach(), mean.detach(), var.detach()
+
+    @staticmethod
+    def backward(ctx, gp, _gm, _gv):
+        x, w, inv, bias, mean, var = ctx.saved_tensors
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        mul = inv.to(x.dtype).float()
+        add = (bias - mean * inv).to(x.dtype).float()
+        rinv = torch.rsqrt(var + EPS)
+        g = gp.to(x.dtype).contiguous()
+        sums = stem_kernel.stem_bwd_sums_im2col(x, w, mul, add, mean, rinv, g)
+        dw = stem_kernel.stem_bwd_dw_im2col(x, w, mul, add, mean, rinv, inv,
+                                            sums[0] / n, sums[1] / n, g)
+        return None, dw, sums[1], sums[0]
+
+
+def test_im2col_f32_gradients_match_podtpu():
+    """float32: the op's gradients from the im2col passes against podtpu's
+    custom VJP (Pallas, interpret mode), at the tolerance of
+    ``test_f32_gradients_match_podtpu``."""
+    x, w, scale, bias = _inputs()
+    got = _torch_grads(_Im2colStem.apply, x, w, scale, bias, torch.float32)
+    want = _jax_grads(make_fused_stem(H, W, CI, CO, "float32", EPS),
+                      x, w, scale, bias)
+    for g, wnt in zip(got, want):
+        np.testing.assert_allclose(g, wnt, rtol=1e-4, atol=1e-4)
+
+
+def test_im2col_bf16_gradient_direction():
+    """bf16: the same by direction (cosine >= 0.995), as
+    ``test_bf16_gradient_direction`` holds the plain version."""
+    x, w, scale, bias = _inputs()
+    got = _torch_grads(_Im2colStem.apply, x, w, scale, bias, torch.bfloat16)
+    want = _jax_grads(make_fused_stem(H, W, CI, CO, "bfloat16", EPS),
+                      x, w, scale, bias)
+    for g, wnt in zip(got[3:], want[3:]):
+        assert _cosine(g, wnt) >= 0.995
+
+
+def test_check_bwd_v1_takes_cuda_tensors_only():
+    x, wt, g, n, vecs, inv = _bwd_operands((2, 16, 16), torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        stem_kernel.check_bwd_v1("bwd_dw", x, wt, *vecs, inv, vecs[2],
+                                 vecs[2], g)
