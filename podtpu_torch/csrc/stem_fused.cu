@@ -1,13 +1,13 @@
 // Fused Darknet stem for Hopper (sm_90a): conv3x3 (3 -> 32, stride 1, pad 1),
 // train-mode BatchNorm, ReLU and the following 2x2/2 max pool, forward and
-// backward, in four kernels and one fixed-order reduction.
+// backward, in four passes and one fixed-order reduction.
 //
 // Replaces the four Pallas TPU kernels of podtpu/ops/pallas/stem_fused.py
 // (make_fused_stem):
-//   stats_kernel    <- run_stats    (:314, body :189-207)
-//   emit_kernel     <- run_emit     (:326, body :209-230)
-//   bwd_sums_kernel <- run_bwd_sums (:339, body :232-272)
-//   bwd_dw_kernel   <- run_bwd_dw   (:352, body :274-312)
+//   stats    <- run_stats    (:314, body :189-207)
+//   emit     <- run_emit     (:326, body :209-230)
+//   bwd_sums <- run_bwd_sums (:339, body :232-272)
+//   bwd_dw   <- run_bwd_dw   (:352, body :274-312)
 // and computes what they compute: pre = the conv rounded to the compute
 // dtype T (bf16 or f32); stats = (sum pre, sum pre^2) per channel;
 // pooled = maxpool(relu(T(T(pre * mul) + add))); in the backward the pool
@@ -22,22 +22,26 @@
 // little more than its input, its [B, H/2, W/2, 32] pooled output or
 // cotangent (177 MB), and nothing else: bytes bound every pass. What a
 // pass spends beyond that is arithmetic per conv output: the conv's 27 x
-// 32 multiply-adds (19 GFLOP a pass at B=64) and the float32 epilogue
-// (affine with two roundings, pool routing, xhat, d_pre, the sums).
+// 32 multiply-adds (19 GFLOP a pass at B=64) and the epilogue (affine with
+// two roundings, pool, routing, xhat, d_pre, the sums). On the float32
+// pipes the conv alone is 9.6 G lane operations, several times the bytes
+// bound's time, so in bf16 every product runs on the tensor cores and what
+// is left to bound a pass is its epilogue's instructions and the fixed
+// costs of a tile (two barriers, the wait for its loads).
 //
-// Two generations of kernels live here.
-// * stats, emit, and every kernel in float32 run the conv on the f32
-//   pipes (fmaf in tap order; products of bf16 values are exact in f32).
-//   In float32 that is on purpose: on the tensor cores the product would
-//   be TF32. Their design is the first paragraph below.
-// * The two backward kernels in bf16 (bwd_tc_kernel) run both of their
-//   matrix products, the conv and dW = im2col^T x d_pre, on the bf16
-//   tensor cores (mma.sync m16n8k16, f32 accumulators) and keep the next
-//   tile's loads in flight (cp.async) while a tile is computed. What is
-//   left to bound them is the epilogue's instructions on the f32 pipes.
-//   Their design is the second paragraph. The first-generation bf16
-//   backward kernels stay compiled behind podtpu_stem_bwd_*_v1, for
-//   timing old against new on one card; nothing else calls them.
+// Two designs live here, one per compute dtype.
+// * bf16: stats_tc_kernel, emit_tc_kernel and bwd_tc_kernel<kDw> share one
+//   conv core (stage_tile, conv_unit, round_pre, affine2): the conv as
+//   mma.sync m16n8k16 with f32 accumulators on fragments that ldmatrix
+//   reads from a 4-channel staged tile, the next tile's rows in flight
+//   (cp.async) while a tile is computed. Forward and backward produce pre
+//   and y by the same instruction sequence, so the backward's pool winner
+//   and ReLU mask are the forward's bit for bit, by construction. Their
+//   design is the second paragraph below.
+// * float32: stats_kernel, emit_kernel, bwd_sums_kernel, bwd_dw_kernel run
+//   the conv on the f32 pipes (fmaf in tap order), on purpose: on the
+//   tensor cores the product would be TF32. Their design is the first
+//   paragraph. The templates are instantiated for float only.
 // The TPU kernel's MXU formulation (block-diagonal weights, parity-split
 // planar input) exists for the TPU's matrix unit and is not carried over.
 //
@@ -58,13 +62,11 @@
 //   shared memory (chunks swizzled by pixel, so neighbouring threads hit
 //   different banks), then each thread accumulates a 9-tap x 4-channel
 //   block of dW over a tenth of the tile's pixels.
-// * Rounding: the conv accumulates in f32 with fmaf in tap order
-//   (ky, kx, ci) and rounds once to T (the XLA and Pallas rounding point,
-//   stem_fused.py:156). The affine is two separately rounded operations
-//   (__fmul_rn, __fadd_rn), each rounded to T, as the plain x * mul + add
-//   rounds; the build's --fmad=false keeps nvcc from contracting them.
+// * Rounding: the affine is two separately rounded operations (__fmul_rn,
+//   __fadd_rn), as the plain x * mul + add rounds; the build's
+//   --fmad=false keeps nvcc from contracting them.
 //
-// Design, tensor-core backward (bf16). Same tiles, same walk, 4 warps.
+// Design, tensor-core kernels (bf16). Same tiles, same walk, 4 warps.
 // * No im2col tile is built. The input tile is staged with 4 channels a
 //   pixel (the 4th zero), 8 bytes, twice: copy A, and copy B shifted by one
 //   pixel. For a fixed ky the taps (kx, ci) of conv pixel c are then the 16
@@ -75,22 +77,50 @@
 //   zero weights (product 1) or fall into dW columns that are dropped
 //   (product 2). B lies 4 sixteen-byte bank groups beyond A, so the eight
 //   rows of every 8 x 8 matrix hit eight different groups.
-// * Channel-major products, so that product 1's accumulators are product
-//   2's A operand and d_pre never leaves registers. A warp takes units of
-//   2 conv rows x 8 columns (16 pixels = 4 pool windows):
+// * Channel-major products. A warp takes units of 2 conv rows x 8 columns
+//   (16 pixels = 4 pool windows):
 //     pre^T[32 ch x 16 px] = W^T[32 x 48] . im2col^T[48 x 16 px]
 //   then the epilogue on the accumulator fragments, where a thread holds,
 //   for its 4 channels (lane / 4 + 8 i), all four positions of one pool
-//   window (the register pair = dx, the two n8 tiles = dy), then
-//     dW^T[32 ch x 48] += d_pre^T[32 ch x 16 px] . im2col[16 px x 48]
-//   with the 32 x 48 f32 accumulators of the warp living in registers
-//   over all tiles of the block. The weights are A fragments in registers
-//   for the whole kernel.
+//   window (the register pair = dx, the two n8 tiles = dy): the pool and
+//   its routing are local to a thread. The weights are A fragments in
+//   registers for the whole kernel. The forward keeps this orientation
+//   (whether mma.sync gives the same bits with A and B exchanged is
+//   documented nowhere).
 // * Loads: the raw input rows (16-byte chunks from the aligned-down row
 //   start; the staging pass removes each row's phase and applies the
-//   conv's zero padding) and the cotangent tile (8 KB, zero-filled outside
-//   the image) of tile k + 1 are started with cp.async into the other of
-//   two stages before tile k is staged and computed.
+//   conv's zero padding) of tile k + 1 are started with cp.async into the
+//   other of two stages before tile k is staged and computed; in the
+//   backward the cotangent tile (8 KB, zero-filled outside the image) too.
+// * stats: the epilogue rounds pre to bf16 and adds pre and pre^2 in f32
+//   (the square of a bf16 value does not fit bf16), 8 sums a thread over
+//   all its tiles. A unit computes its 16 conv pixels whether they lie in
+//   the image or not, and the conv just beyond the border is not zero (it
+//   sees the image through its halo): H and W are even, so a pool window
+//   lies wholly inside or outside, and outside windows are masked to zero
+//   before the sums. 17.9 KB of shared memory, no per-unit shared loads
+//   beside ldmatrix, all eight units of a warp in flight.
+// * The forward kernels share their walk over the tiles
+//   (walk_staged_tiles), which steps from tile to tile without a division;
+//   what is left of a tile's fixed cost is the instructions that start its
+//   loads and stage it, and its two barriers.
+// * emit: affine, then the 2 x 2 max and the ReLU on bf16 pairs (exact).
+//   The store is the pass's largest byte term (177 of 243 MB), and in the
+//   fragment layout a thread holds 4 channels that lie 8 apart, 2-byte
+//   pieces of a 64-byte pixel. So the tile's pooled output goes through
+//   an 8 KB stage in shared memory (the four 16-byte chunks of a pixel
+//   XOR-swizzled by pixel: the 2-byte writes of a warp fall on 16
+//   different words, the 16-byte reads of eight threads on eight bank
+//   groups) and leaves with 16 bytes a thread, neighbouring threads on
+//   neighbouring addresses: 1 KB contiguous per pooled tile row. A warp's
+//   units fill its own two pooled rows of the stage, so it stores them
+//   itself behind a barrier of the warp alone, and the store costs the
+//   block no barrier. Pooled pixels outside the image are not stored.
+// * bwd: channel-major products make product 1's accumulators product 2's
+//   A operand, so d_pre never leaves registers:
+//     dW^T[32 ch x 48] += d_pre^T[32 ch x 16 px] . im2col[16 px x 48]
+//   with the 32 x 48 f32 accumulators of the warp living in registers
+//   over all tiles of the block.
 // * Reductions as above, free of atomics: sums go through a fixed shuffle
 //   tree over the 4 lanes of a channel, then over the warps in order; the
 //   warps' dW accumulators are added in warp order; reduce_kernel adds the
@@ -98,13 +128,11 @@
 //   same bits.
 // * Rounding: the conv is rounded once to bf16 from the tensor core's f32
 //   accumulator (the MXU route of stem_fused.py:148-157). Its summation
-//   order differs from the fmaf route's, so a pre-activation may land on
-//   the neighbouring bf16 value now and then. The epilogue gives the
-//   f32-pipe kernels' values from fewer instructions: the affine on bf16
-//   pairs (mul.bf16x2, add.bf16x2: one rounding of an exact result each,
-//   which is what f32 arithmetic rounded to bf16 gives), the routing
-//   spelled for the one winner of a window, the per-channel constants in
-//   two 16-byte shared loads.
+//   order differs from cuDNN's and from fmaf in tap order, so against the
+//   plain version a pre-activation may land on the neighbouring bf16 value
+//   now and then. The affine runs on bf16 pairs (mul.bf16x2, add.bf16x2:
+//   one rounding of an exact result each, which is what f32 arithmetic
+//   rounded to bf16 gives).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -241,10 +269,6 @@ __device__ __forceinline__ Tile tile_at(const Shape& s, int t) {
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 // Round an f32 value to T and back.
 template <typename T>
 __device__ __forceinline__ float round_to(float v);
@@ -252,12 +276,7 @@ template <>
 __device__ __forceinline__ float round_to<float>(float v) {
   return v;
 }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// 8 consecutive values of T <-> f32 (16- or 32-byte aligned).
+// 8 consecutive f32 values (32-byte aligned).
 __device__ __forceinline__ void load8(const float* src, float (&v)[kGroup]) {
   const float4 a = reinterpret_cast<const float4*>(src)[0];
   const float4 b = reinterpret_cast<const float4*>(src)[1];
@@ -265,36 +284,9 @@ __device__ __forceinline__ void load8(const float* src, float (&v)[kGroup]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* src,
-                                      float (&v)[kGroup]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const unsigned int w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
 __device__ __forceinline__ void store8(float* dst, const float (&v)[kGroup]) {
   reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ unsigned int pack_bf16x2(float lo, float hi) {
-  return static_cast<unsigned int>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
-         (static_cast<unsigned int>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
-          << 16);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* dst,
-                                       const float (&v)[kGroup]) {
-  uint4 u;
-  u.x = pack_bf16x2(v[0], v[1]);
-  u.y = pack_bf16x2(v[2], v[3]);
-  u.z = pack_bf16x2(v[4], v[5]);
-  u.w = pack_bf16x2(v[6], v[7]);
-  *reinterpret_cast<uint4*>(dst) = u;
 }
 
 __device__ __forceinline__ void load_weights(const float* __restrict__ w,
@@ -708,7 +700,7 @@ bwd_dw_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// ---- backward in bf16: both products on the tensor cores -----------------
+// ---- bf16: every product on the tensor cores -------------------------------
 
 constexpr int kWarps = kThreads / 32;          // 4
 constexpr int kSlots = 48;                     // K: ky * 16 + kx * 4 + ci
@@ -720,16 +712,20 @@ constexpr int kCopyPx = kStagePx + 4;
 constexpr int kRawChunks = 14;                 // 14 + 34 * 6 bytes <= 14 * 16
 constexpr int kRawRow = kRawChunks * 16;       // bytes of a raw input row
 constexpr int kRawBytes = kIY * kRawRow;       // 4032 a stage
-constexpr int kGBytes = kThreads * kCo * 2;    // 8192 a stage
-constexpr int kTcSmem =
-    2 * kCopyPx * 8 + 2 * kRawBytes + 2 * kGBytes + kCo * 32;  // + constants
+// a pooled tile, 64 bytes a pixel: a cotangent stage, or emit's output stage
+constexpr int kGBytes = kThreads * kCo * 2;    // 8192
+// the input side of a kernel's shared memory: copies A and B, then two
+// stages of raw rows
+constexpr int kXSmem = 2 * kCopyPx * 8 + 2 * kRawBytes;  // 17,920
+constexpr int kTcSmem = kXSmem + 2 * kGBytes + kCo * 32;  // + constants
 static_assert(kCopyPx * 8 % 128 == 64, "copy B must lie 4 bank groups off A");
+static_assert(kXSmem % 128 == 0, "what follows the input side stays aligned");
 static_assert(kWarps * kCo * kSlots * 4 <= kTcSmem - kCo * 32,
               "the warps' dW tiles are added through the staging buffers");
 
-// What the epilogue reads per channel, laid out for two 16-byte loads: the
-// four lanes of a channel read one address (a broadcast), the eight
-// channels of a warp-wide load 128 contiguous bytes.
+// What the backward's epilogue reads per channel, laid out for two 16-byte
+// loads: the four lanes of a channel read one address (a broadcast), the
+// eight channels of a warp-wide load 128 contiguous bytes.
 struct __align__(16) ChannelConsts {
   float mean, rinv, inv, c1;
   float c0;
@@ -738,12 +734,40 @@ struct __align__(16) ChannelConsts {
 };
 static_assert(sizeof(ChannelConsts) == 32, "two float4 a channel");
 
+__device__ __forceinline__ unsigned int pack_bf16x2(float lo, float hi) {
+  return static_cast<unsigned int>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<unsigned int>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+          << 16);
+}
+
+__device__ __forceinline__ unsigned int bf162_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const unsigned int*>(&v);
+}
+
 // The weight of slot k of row ky for channel ch: zero for kx = 3, ci = 3.
 __device__ __forceinline__ float slot_weight(const float* __restrict__ w,
                                              int ky, int k, int ch) {
   const int kx = k >> 2, ci = k & 3;
   return (kx < 3 && ci < kCi) ? w[((ky * 3 + kx) * kCi + ci) * kCo + ch]
                               : 0.0f;
+}
+
+// W^T as A fragments: wf[m][ky] is the 16 x 16 block of channels
+// 16 m .. 16 m + 15 and the slots of row ky (gid = lane / 4, tig = lane % 4).
+__device__ __forceinline__ void load_weight_frags(
+    const float* __restrict__ w, int gid, int tig,
+    unsigned int (&wf)[2][3][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int ch = m * 16 + gid + (r & 1) * 8;
+        const int k = 2 * tig + (r >> 1) * 8;
+        wf[m][ky][r] = pack_bf16x2(slot_weight(w, ky, k, ch),
+                                   slot_weight(w, ky, k + 1, ch));
+      }
 }
 
 // First byte of the raw row y of the tile's input window in x: image
@@ -763,14 +787,13 @@ static_assert(kSegs * 2 == kRawChunks && kSegs * 5 >= kIX &&
                   kSegs * kIY <= kThreads,
               "7 segments cover a row, 126 threads the window");
 
-// Start the loads of tile t into a stage: the raw input rows as 16-byte
-// chunks from each row's aligned-down start up to its last needed byte
-// (rows outside the image are skipped; the staging pass does not read
-// them), and the cotangent, 64 bytes a pooled pixel (one a thread), zeros
-// outside the image.
-__device__ __forceinline__ void start_tile_loads(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gout,
-    const Shape& s, const Tile& t, unsigned char* raw, unsigned char* gs) {
+// Start the loads of tile t's input into a stage: the raw input rows as
+// 16-byte chunks from each row's aligned-down start up to its last needed
+// byte (rows outside the image are skipped; the staging pass does not read
+// them).
+__device__ __forceinline__ void start_x_loads(
+    const __nv_bfloat16* __restrict__ x, const Shape& s, const Tile& t,
+    unsigned char* raw) {
   const int x0 = 2 * t.px0 - 1;
   const int ca = x0 < 0 ? 0 : x0;
   const int cb = x0 + kIX < s.w ? x0 + kIX : s.w;
@@ -790,6 +813,13 @@ __device__ __forceinline__ void start_tile_loads(
                    left < 16 ? static_cast<int>(left) : 16);
     }
   }
+}
+
+// Start the loads of tile t's cotangent into a stage: 64 bytes a pooled
+// pixel (one a thread), zeros outside the image.
+__device__ __forceinline__ void start_g_loads(
+    const __nv_bfloat16* __restrict__ gout, const Shape& s, const Tile& t,
+    unsigned char* gs) {
   const int py = t.py0 + threadIdx.x / kTPX, px = t.px0 + threadIdx.x % kTPX;
   const bool in = py < s.ph && px < s.pw;
   const __nv_bfloat16* src =
@@ -799,6 +829,13 @@ __device__ __forceinline__ void start_tile_loads(
   for (int c = 0; c < 4; ++c)
     cp_async16(gs + threadIdx.x * 64 + c * 16, src + (in ? c * 8 : 0),
                in ? 16 : 0);
+}
+
+// The 4 pixels of zeros behind each copy are written here once; stage_tile
+// writes every other staged pixel of every tile.
+__device__ __forceinline__ void clear_copies(uint2* xa) {
+  for (int i = threadIdx.x; i < 2 * kCopyPx; i += kThreads)
+    xa[i] = make_uint2(0u, 0u);
 }
 
 // Raw rows -> the two 4-channel copies: xa[p] = staged pixel p (row p / 34,
@@ -838,11 +875,306 @@ __device__ __forceinline__ void stage_tile(
   }
 }
 
+// ldmatrix: a lane addresses row lane % 8 of matrix lane / 8; matrix
+// (rr, h) of a load holds slots 8 h .. 8 h + 7 of the 8 conv pixels of
+// one staged row: staged pixels c0 + 2 h + (0..7), even ones in copy A,
+// odd ones in copy B (xb[p - 1] = pixel p). This is the lane's address for
+// the unit at staged pixel 0; a unit adds its own offset.
+__device__ __forceinline__ const uint2* ldmatrix_lane_row(const uint2* xa,
+                                                          const uint2* xb,
+                                                          int lane) {
+  const int li = lane & 7, lh = (lane >> 3) & 1, lr = lane >> 4;
+  return ((li & 1) ? xb - 1 : xa) + lr * kIX + li + 2 * lh;
+}
+
+// Product 1 of a unit of 2 conv rows x 8 conv columns whose lane address
+// is `rows`: acc[m][dy] = the conv, in f32, of channels 16 m + gid (+ 8)
+// at conv row dy, columns 2 tig and 2 tig + 1. Every kernel's conv is this
+// function, so they all sum it in one order.
+__device__ __forceinline__ void conv_unit(const uint2* rows,
+                                          const unsigned int (&wf)[2][3][4],
+                                          float (&acc)[2][2][4]) {
+  // nb[rr][h] = slots 8 h.. of staged row rr of the unit
+  unsigned int nb[4][2];
+  {
+    unsigned int r4[4];
+    ldmatrix_x4(rows, r4);
+    nb[0][0] = r4[0]; nb[0][1] = r4[1]; nb[1][0] = r4[2]; nb[1][1] = r4[3];
+    ldmatrix_x4(rows + 2 * kIX, r4);
+    nb[2][0] = r4[0]; nb[2][1] = r4[1]; nb[3][0] = r4[2]; nb[3][1] = r4[3];
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[m][dy][r] = 0.0f;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+        mma_bf16(acc[m][dy], wf[m][ky], nb[dy + ky][0], nb[dy + ky][1]);
+    }
+}
+
+// pre of one channel at one conv row, columns dx = 0, 1: an accumulator
+// pair rounded once to bf16 (hf picks the channel gid + 8 hf of the block).
+__device__ __forceinline__ __nv_bfloat162 round_pre(const float (&a)[4],
+                                                    int hf) {
+  return __floats2bfloat162_rn(a[2 * hf], a[2 * hf + 1]);
+}
+
+// bn_apply() on pairs. Each packed operation rounds its exact result once;
+// f32 arithmetic rounded to bf16 gives the same value: the product of two
+// bf16 values is exact in f32, and so is their sum unless one is below
+// 2^-16 of the other, too small to move either rounding.
+__device__ __forceinline__ __nv_bfloat162 affine2(__nv_bfloat162 pre2,
+                                                  __nv_bfloat162 mul2,
+                                                  __nv_bfloat162 add2) {
+  return __hadd2_rn(__hmul2_rn(pre2, mul2), add2);
+}
+
+// row = (sum over the block of a [32], of b [32]), where a thread's a[i]
+// and b[i] belong to channel gid + 8 i: the 4 lanes of a channel in a
+// fixed tree, then the warps in order. red holds kWarps * 64 floats that
+// no thread still reads. Every thread calls it.
+__device__ __forceinline__ void block_channel_sums(float (&a)[4], float (&b)[4],
+                                                   float* red,
+                                                   float* __restrict__ row) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a[i] += shfl_xor(a[i], 1);
+    a[i] += shfl_xor(a[i], 2);
+    b[i] += shfl_xor(b[i], 1);
+    b[i] += shfl_xor(b[i], 2);
+    if (tig == 0) {
+      red[warp * 2 * kCo + gid + 8 * i] = a[i];
+      red[warp * 2 * kCo + kCo + gid + 8 * i] = b[i];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * kCo) {
+    float sum = 0.0f;
+    for (int wp = 0; wp < kWarps; ++wp)
+      sum += red[wp * 2 * kCo + threadIdx.x];
+    row[threadIdx.x] = sum;
+  }
+}
+
+// ---- forward, bf16 ----------------------------------------------------------
+
+// tile_at(s, t + step) from tile_at(s, t) without a division: step is the
+// grid's size as (images, tile rows, tile columns), and the carries go up.
+struct TileStep {
+  int img, py, px;
+};
+
+__device__ __forceinline__ TileStep tile_step(const Shape& s, int step) {
+  const Tile d = tile_at(s, step);
+  return {d.img, d.py0, d.px0};
+}
+
+__device__ __forceinline__ Tile next_tile(const Shape& s, Tile t,
+                                          const TileStep& d) {
+  t.px0 += d.px;
+  t.py0 += d.py;
+  t.img += d.img;
+  if (t.px0 >= s.tiles_x * kTPX) {
+    t.px0 -= s.tiles_x * kTPX;
+    t.py0 += kTPY;
+  }
+  if (t.py0 >= s.tiles_y * kTPY) {
+    t.py0 -= s.tiles_y * kTPY;
+    t.img += 1;
+  }
+  return t;
+}
+
+// Walks the block's tiles (tile = blockIdx.x + k * gridDim.x) as
+// bwd_tc_kernel does, the next tile's raw rows in flight while a tile is
+// staged and computed, and calls compute(tile) on each staged tile. sm
+// holds kXSmem bytes: copies A and B, then the two raw stages. Every thread
+// calls it.
+template <typename F>
+__device__ __forceinline__ void walk_staged_tiles(
+    const __nv_bfloat16* __restrict__ x, const Shape& s, unsigned char* sm,
+    F&& compute) {
+  uint2* xa = reinterpret_cast<uint2*>(sm);
+  uint2* xb = xa + kCopyPx;
+  unsigned char* raw = sm + 2 * kCopyPx * 8;
+  clear_copies(xa);
+
+  // the grid has at most one block a tile: every block has a first tile
+  Tile tl = tile_at(s, blockIdx.x);
+  const TileStep step = tile_step(s, gridDim.x);
+  start_x_loads(x, s, tl, raw);
+  cp_async_commit();
+
+  int stage = 0;
+  for (int t = blockIdx.x; t < s.tiles; t += gridDim.x, stage ^= 1) {
+    cp_async_wait_all();  // this thread's loads of tile t have landed
+    __syncthreads();      // everyone's have; the previous tile is computed
+    Tile nx = tl;
+    if (t + gridDim.x < s.tiles) {
+      nx = next_tile(s, tl, step);
+      start_x_loads(x, s, nx, raw + (stage ^ 1) * kRawBytes);
+    }
+    cp_async_commit();
+    stage_tile(x, s, tl, raw + stage * kRawBytes, xa, xb);
+    __syncthreads();
+    compute(tl);
+    tl = nx;
+  }
+  cp_async_wait_all();
+}
+
+// partials[blockIdx.x] = (sum pre [32], sum pre^2 [32]) over its tiles.
+__global__ void __launch_bounds__(kThreads)
+stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                const float* __restrict__ w, Shape s,
+                float* __restrict__ partials) {
+  __shared__ __align__(128) unsigned char sm[kXSmem];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  unsigned int wf[2][3][4];
+  load_weight_frags(w, gid, tig, wf);
+  const uint2* lane_row = ldmatrix_lane_row(
+      reinterpret_cast<const uint2*>(sm),
+      reinterpret_cast<const uint2*>(sm) + kCopyPx, lane);
+  float sum[4], sq[4];  // this thread's 4 channels
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sum[i] = sq[i] = 0.0f;
+
+  walk_staged_tiles(x, s, sm, [&](const Tile& tl) {
+    // units as in bwd_tc_kernel: this thread's pool window is
+    // (j, 4 cg + tig), and it holds all four of its conv outputs. All
+    // eight units of a warp are in flight (112 registers, 4 blocks an SM:
+    // measured faster than four in flight at 72 registers and 7 blocks)
+#pragma unroll 8
+    for (int u = 0; u < 8; ++u) {
+      const int j = 2 * warp + (u >> 2), cg = u & 3;
+      // the conv of a window outside the image (ragged tiles) is not zero:
+      // it is masked out of the sums, bit by bit, without a branch
+      const unsigned int keep =
+          (tl.py0 + j < s.ph && tl.px0 + 4 * cg + tig < s.pw) ? 0xffffffffu
+                                                              : 0u;
+      float acc[2][2][4];
+      conv_unit(lane_row + 2 * j * kIX + 8 * cg, wf, acc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int dy = 0; dy < 2; ++dy) {
+          const unsigned int p2 =
+              bf162_bits(round_pre(acc[i >> 1][dy], i & 1)) & keep;
+          const float lo = __uint_as_float(p2 << 16);
+          const float hi = __uint_as_float(p2 & 0xffff0000u);
+          sum[i] += lo;
+          sq[i] = fmaf(lo, lo, sq[i]);  // f32: pre^2 does not fit bf16
+          sum[i] += hi;
+          sq[i] = fmaf(hi, hi, sq[i]);
+        }
+    }
+  });
+  __syncthreads();  // the staging buffers are free: the sums go through them
+  block_channel_sums(sum, sq, reinterpret_cast<float*>(sm),
+                     partials + static_cast<size_t>(blockIdx.x) * 2 * kCo);
+}
+
+// emit's output stage: a pooled tile, 64 bytes a pixel, whose four 16-byte
+// channel chunks are XOR-swizzled by pixel. Index, in bf16 elements, of
+// channel ch of the tile's pixel p.
+__device__ __forceinline__ int out_stage_index(int p, int ch) {
+  return p * kCo + ((((ch >> 3) ^ (p & 3)) << 3) | (ch & 7));
+}
+
+// A warp's two pooled rows of the staged tile -> out: 16 bytes a lane,
+// neighbouring lanes on neighbouring addresses (a tile row is 1 KB
+// contiguous); pooled pixels outside the image are not stored.
+__device__ __forceinline__ void store_out_rows(
+    const __nv_bfloat16* os, const Shape& s, const Tile& t, int warp, int lane,
+    __nv_bfloat16* __restrict__ out) {
+#pragma unroll
+  for (int k = 0; k < 2 * kTPX * 4 / 32; ++k) {
+    const int q = k * 32 + lane;
+    const int p = warp * 2 * kTPX + (q >> 2), c = q & 3;
+    const int py = t.py0 + p / kTPX, px = t.px0 + p % kTPX;
+    if (py < s.ph && px < s.pw)
+      *reinterpret_cast<uint4*>(
+          out + ((static_cast<size_t>(t.img) * s.ph + py) * s.pw + px) * kCo +
+          c * 8) =
+          *reinterpret_cast<const uint4*>(os + out_stage_index(p, c * 8));
+  }
+}
+
+// out[b, py, px, c] = max over the window of relu(bf16(bf16(pre * mul) + add)).
+__global__ void __launch_bounds__(kThreads)
+emit_tc_kernel(const __nv_bfloat16* __restrict__ x,
+               const float* __restrict__ w, const float* __restrict__ vec,
+               Shape s, __nv_bfloat16* __restrict__ out) {
+  __shared__ __align__(128) unsigned char sm[kXSmem + kGBytes];
+  __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(sm + kXSmem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  unsigned int wf[2][3][4];
+  load_weight_frags(w, gid, tig, wf);
+  const uint2* lane_row = ldmatrix_lane_row(
+      reinterpret_cast<const uint2*>(sm),
+      reinterpret_cast<const uint2*>(sm) + kCopyPx, lane);
+  // the affine of this thread's 4 channels, as pairs, in registers
+  __nv_bfloat162 mul2[4], add2[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    mul2[i] = __float2bfloat162_rn(vec[kMul * kCo + gid + 8 * i]);
+    add2[i] = __float2bfloat162_rn(vec[kAdd * kCo + gid + 8 * i]);
+  }
+  const __nv_bfloat162 zero2 = __float2bfloat162_rn(0.0f);
+
+  walk_staged_tiles(x, s, sm, [&](const Tile& tl) {
+    // four units of a warp in flight: measured faster than two or eight
+#pragma unroll 4
+    for (int u = 0; u < 8; ++u) {
+      const int j = 2 * warp + (u >> 2), cg = u & 3;
+      float acc[2][2][4];
+      conv_unit(lane_row + 2 * j * kIX + 8 * cg, wf, acc);
+      const int p = j * kTPX + 4 * cg + tig;  // this thread's pooled pixel
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        // col[hf] = the window's two column maxima (dx = 0, 1) of channel
+        // gid + 8 (2 m + hf); then both channels' row maxima at once, and
+        // the ReLU as a max with zero (max(relu(y)) = max(0, y...)). The
+        // max of bf16 values is exact. A NaN comes through every max
+        // (max.NaN), as it comes through relu and max_pool2d.
+        __nv_bfloat162 col[2];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 2 * m + hf;
+          col[hf] = __hmax2_nan(
+              affine2(round_pre(acc[m][0], hf), mul2[i], add2[i]),
+              affine2(round_pre(acc[m][1], hf), mul2[i], add2[i]));
+        }
+        const __nv_bfloat162 top = __hmax2_nan(
+            __hmax2_nan(__lows2bfloat162(col[0], col[1]),
+                        __highs2bfloat162(col[0], col[1])),
+            zero2);
+        os[out_stage_index(p, gid + 16 * m)] = __low2bfloat16(top);
+        os[out_stage_index(p, gid + 16 * m + 8)] = __high2bfloat16(top);
+      }
+    }
+    // a warp's units fill its own two pooled rows of the stage, so it
+    // stores them itself, between two barriers of the warp alone
+    __syncwarp();
+    store_out_rows(os, s, tl, warp, lane, out);
+    __syncwarp();
+  });
+}
+
+// ---- backward, bf16 -----------------------------------------------------------
+
 // kDw = false: partials[blockIdx.x] = (sum d [32], sum d * xhat [32]);
 // kDw = true: partials[blockIdx.x][tap * 32 + co] = sum x[pixel + tap] *
 // bf16(inv * (d - c0 - xhat * c1)); both over the block's tiles.
 template <bool kDw>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kDw ? 4 : 5)
 bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
               const float* __restrict__ vec,
               const __nv_bfloat16* __restrict__ gout, Shape s,
@@ -851,7 +1183,7 @@ bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
   uint2* xa = reinterpret_cast<uint2*>(sm);
   uint2* xb = xa + kCopyPx;
   unsigned char* raw = sm + 2 * kCopyPx * 8;
-  unsigned char* gs = raw + 2 * kRawBytes;
+  unsigned char* gs = sm + kXSmem;
   ChannelConsts* cv = reinterpret_cast<ChannelConsts*>(gs + 2 * kGBytes);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -869,30 +1201,10 @@ bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
     c.unused = 0.0f;
     cv[k] = c;
   }
-  for (int i = threadIdx.x; i < 2 * kCopyPx; i += kThreads)
-    xa[i] = make_uint2(0u, 0u);
-
-  // W^T as A fragments: wf[m][ky] is the 16 x 16 block of channels
-  // 16 m .. 16 m + 15 and the slots of row ky
+  clear_copies(xa);
   unsigned int wf[2][3][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int ch = m * 16 + gid + (r & 1) * 8;
-        const int k = 2 * tig + (r >> 1) * 8;
-        wf[m][ky][r] = pack_bf16x2(slot_weight(w, ky, k, ch),
-                                   slot_weight(w, ky, k + 1, ch));
-      }
-
-  // ldmatrix: this lane addresses row lane % 8 of matrix lane / 8; matrix
-  // (rr, h) of a load holds slots 8 h .. 8 h + 7 of the 8 conv pixels of
-  // one staged row: staged pixels c0 + 2 h + (0..7), even ones in copy A,
-  // odd ones in copy B (xb[p - 1] = pixel p)
-  const int li = lane & 7, lh = (lane >> 3) & 1, lr = lane >> 4;
-  const uint2* lane_row = ((li & 1) ? xb - 1 : xa) + lr * kIX + li + 2 * lh;
+  load_weight_frags(w, gid, tig, wf);
+  const uint2* lane_row = ldmatrix_lane_row(xa, xb, lane);
 
   float dw[2][6][4];   // dW^T [32 ch x 48 slots] of this warp (kDw)
   float sum_d[4], sum_dx[4];  // this thread's 4 channels (!kDw)
@@ -906,7 +1218,8 @@ bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
   for (int i = 0; i < 4; ++i) sum_d[i] = sum_dx[i] = 0.0f;
 
   // the grid has at most one block a tile: every block has a first tile
-  start_tile_loads(x, gout, s, tile_at(s, blockIdx.x), raw, gs);
+  start_x_loads(x, s, tile_at(s, blockIdx.x), raw);
+  start_g_loads(gout, s, tile_at(s, blockIdx.x), gs);
   cp_async_commit();
 
   int stage = 0;
@@ -914,10 +1227,11 @@ bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
     const Tile tl = tile_at(s, t);
     cp_async_wait_all();  // this thread's loads of tile t have landed
     __syncthreads();      // everyone's have; the previous tile is computed
-    if (t + gridDim.x < s.tiles)
-      start_tile_loads(x, gout, s, tile_at(s, t + gridDim.x),
-                       raw + (stage ^ 1) * kRawBytes,
-                       gs + (stage ^ 1) * kGBytes);
+    if (t + gridDim.x < s.tiles) {
+      const Tile nx = tile_at(s, t + gridDim.x);
+      start_x_loads(x, s, nx, raw + (stage ^ 1) * kRawBytes);
+      start_g_loads(gout, s, nx, gs + (stage ^ 1) * kGBytes);
+    }
     cp_async_commit();
     stage_tile(x, s, tl, raw + stage * kRawBytes, xa, xb);
     __syncthreads();
@@ -936,26 +1250,8 @@ bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
           tl.py0 + j < s.ph && tl.px0 + 4 * cg + tig < s.pw;
       const uint2* rows = lane_row + 2 * j * kIX + 8 * cg;
 
-      // product 1: nb[rr][h] = slots 8 h.. of staged row 2 j + rr
-      unsigned int nb[4][2];
-      {
-        unsigned int r4[4];
-        ldmatrix_x4(rows, r4);
-        nb[0][0] = r4[0]; nb[0][1] = r4[1]; nb[1][0] = r4[2]; nb[1][1] = r4[3];
-        ldmatrix_x4(rows + 2 * kIX, r4);
-        nb[2][0] = r4[0]; nb[2][1] = r4[1]; nb[3][0] = r4[2]; nb[3][1] = r4[3];
-      }
       float acc[2][2][4];  // [m][dy]: channels 16 m + gid (+ 8), columns dx
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int dy = 0; dy < 2; ++dy) {
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[m][dy][r] = 0.0f;
-#pragma unroll
-          for (int ky = 0; ky < 3; ++ky)
-            mma_bf16(acc[m][dy], wf[m][ky], nb[dy + ky][0], nb[dy + ky][1]);
-        }
+      conv_unit(rows, wf, acc);
 
       // epilogue on the fragments; af[m] = d_pre^T as product 2's A
       unsigned int af[2][4];
@@ -966,17 +1262,12 @@ bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
         const int k = gid + 8 * i;
         const float gv = __uint_as_float(static_cast<unsigned int>(gp[k]) << 16);
         float pre[4], y[4];
-        // pre rounded once to bf16, then bn_apply() on pairs. Each packed
-        // operation rounds its exact result once; f32 arithmetic rounded to
-        // bf16 gives the same value: the product of two bf16 values is
-        // exact in f32, and so is their sum unless one is below 2^-16 of
-        // the other, too small to move either rounding
+        // pre and y exactly as emit_tc_kernel makes them
         const ChannelConsts cc = cv[k];
 #pragma unroll
         for (int dy = 0; dy < 2; ++dy) {
-          const __nv_bfloat162 p2 = __floats2bfloat162_rn(
-              acc[m][dy][2 * hf], acc[m][dy][2 * hf + 1]);
-          const __nv_bfloat162 y2 = __hadd2_rn(__hmul2_rn(p2, cc.mul2), cc.add2);
+          const __nv_bfloat162 p2 = round_pre(acc[m][dy], hf);
+          const __nv_bfloat162 y2 = affine2(p2, cc.mul2, cc.add2);
           pre[2 * dy] = __low2float(p2);
           pre[2 * dy + 1] = __high2float(p2);
           y[2 * dy] = __low2float(y2);
@@ -1059,25 +1350,8 @@ bwd_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
       out[o] = sum;
     }
   } else {
-    // the 4 lanes of a channel in a fixed tree, then the warps in order
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      sum_d[i] += shfl_xor(sum_d[i], 1);
-      sum_d[i] += shfl_xor(sum_d[i], 2);
-      sum_dx[i] += shfl_xor(sum_dx[i], 1);
-      sum_dx[i] += shfl_xor(sum_dx[i], 2);
-      if (tig == 0) {
-        red[warp * 2 * kCo + gid + 8 * i] = sum_d[i];
-        red[warp * 2 * kCo + kCo + gid + 8 * i] = sum_dx[i];
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < 2 * kCo) {
-      float sum = 0.0f;
-      for (int wp = 0; wp < kWarps; ++wp)
-        sum += red[wp * 2 * kCo + threadIdx.x];
-      partials[static_cast<size_t>(blockIdx.x) * 2 * kCo + threadIdx.x] = sum;
-    }
+    block_channel_sums(sum_d, sum_dx, red,
+                       partials + static_cast<size_t>(blockIdx.x) * 2 * kCo);
   }
 }
 
@@ -1133,76 +1407,60 @@ bool bad_shape(int b, int h, int w) {
   return b <= 0 || h <= 0 || w <= 0 || h % 2 != 0 || w % 2 != 0;
 }
 
-template <typename T>
-int stats(const void* x, const void* w, void* partials, int max_blocks,
-          void* out, int b, int h, int wd, cudaStream_t stream) {
-  const Shape s = make_shape(b, h, wd);
-  int nblk = 0;
-  cudaError_t err = grid_for(stats_kernel<T>, s, max_blocks, &nblk);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  PODTPU_LAUNCH(stats_kernel<T>, nblk, kThreads, stream,
-                static_cast<const T*>(x), static_cast<const float*>(w), s,
-      static_cast<float*>(partials));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(reduce(static_cast<const float*>(partials), nblk,
-                                 2 * kCo, static_cast<float*>(out), stream));
-}
-
-template <typename T>
-int emit(const void* x, const void* w, const void* vec, void* out, int b,
-         int h, int wd, cudaStream_t stream) {
-  const Shape s = make_shape(b, h, wd);
-  int nblk = 0;
-  cudaError_t err = grid_for(emit_kernel<T>, s, 1 << 30, &nblk);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  PODTPU_LAUNCH(emit_kernel<T>, nblk, kThreads, stream,
-                static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(vec), s, static_cast<T*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// A backward kernel (one row of `cols` partial sums per block), then the
-// fixed-order sum of the rows.
-template <typename T, typename K>
-int bwd_pass(K kernel, int cols, const void* x, const void* w, const void* vec,
-             const void* g, void* partials, int max_blocks, void* out, int b,
-             int h, int wd, cudaStream_t stream) {
+// A kernel that leaves one row of `cols` partial sums per block, then the
+// fixed-order sum of the rows. `args` are the kernel's arguments between
+// the weights and the shape (none for stats; vec and g in the backward).
+template <typename T, typename K, typename... A>
+int sum_pass(K kernel, int cols, const void* x, const void* w, void* partials,
+             int max_blocks, void* out, int b, int h, int wd,
+             cudaStream_t stream, A... args) {
   const Shape s = make_shape(b, h, wd);
   int nblk = 0;
   cudaError_t err = grid_for(kernel, s, max_blocks, &nblk);
   if (err != cudaSuccess) return static_cast<int>(err);
   PODTPU_LAUNCH(kernel, nblk, kThreads, stream, static_cast<const T*>(x),
-                static_cast<const float*>(w), static_cast<const float*>(vec),
-                static_cast<const T*>(g), s, static_cast<float*>(partials));
+                static_cast<const float*>(w), args..., s,
+                static_cast<float*>(partials));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce(static_cast<const float*>(partials), nblk,
                                  cols, static_cast<float*>(out), stream));
 }
 
-// Which kernels a backward entry point runs: the tensor-core design (bf16
-// only), or the f32-pipe design (float32 always, bf16 behind *_v1).
-enum class Route { kTensorCores, kF32Pipes };
+template <typename T, typename K>
+int emit_pass(K kernel, const void* x, const void* w, const void* vec,
+              void* out, int b, int h, int wd, cudaStream_t stream) {
+  const Shape s = make_shape(b, h, wd);
+  int nblk = 0;
+  cudaError_t err = grid_for(kernel, s, 1 << 30, &nblk);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  PODTPU_LAUNCH(kernel, nblk, kThreads, stream, static_cast<const T*>(x),
+                static_cast<const float*>(w), static_cast<const float*>(vec),
+                s, static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
 
-int bwd_entry(bool dw, Route route, const void* x, const void* w,
-              const void* vec, const void* g, void* partials, int max_blocks,
-              void* out, int b, int h, int wd, int bf16, void* stream) {
+// The tensor-core kernels move x, g and the pooled output in 16-byte pieces
+// from 16-byte aligned addresses.
+bool misaligned(const void* a, const void* b = nullptr) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
+          15) != 0;
+}
+
+int bwd_entry(bool dw, const void* x, const void* w, const void* vec,
+              const void* g, void* partials, int max_blocks, void* out, int b,
+              int h, int wd, int bf16, void* stream) {
   if (bad_shape(b, h, wd) || max_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const int cols = dw ? kTaps * kCo : 2 * kCo;
-#define PODTPU_BWD(T, kernel) \
-  bwd_pass<T>(kernel, cols, x, w, vec, g, partials, max_blocks, out, b, h, wd, st)
+#define PODTPU_BWD(T, kernel)                                              \
+  sum_pass<T>(kernel, cols, x, w, partials, max_blocks, out, b, h, wd, st, \
+              static_cast<const float*>(vec), static_cast<const T*>(g))
   if (!bf16)
     return dw ? PODTPU_BWD(float, bwd_dw_kernel<float>)
               : PODTPU_BWD(float, bwd_sums_kernel<float>);
-  if (route == Route::kF32Pipes)
-    return dw ? PODTPU_BWD(__nv_bfloat16, bwd_dw_kernel<__nv_bfloat16>)
-              : PODTPU_BWD(__nv_bfloat16, bwd_sums_kernel<__nv_bfloat16>);
-  // cp.async moves 16-byte chunks from 16-byte aligned addresses
-  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g)) & 15)
-    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (misaligned(x, g)) return static_cast<int>(cudaErrorMisalignedAddress);
   return dw ? PODTPU_BWD(__nv_bfloat16, bwd_tc_kernel<true>)
             : PODTPU_BWD(__nv_bfloat16, bwd_tc_kernel<false>);
 #undef PODTPU_BWD
@@ -1215,8 +1473,10 @@ int bwd_entry(bool dw, Route route, const void* x, const void* w,
 // compute-dtype weights, taps (ky, kx, ci); vec: [7, 32] float32 rows mul,
 // add, mean, rinv, inv, c0, c1 (emit reads mul and add); g and the pooled
 // output: [b, h/2, w/2, 32] in the compute dtype; partials: max_blocks rows
-// of scratch (64 or 864 floats each). h and w must be even. Each returns
-// the cudaError_t of its launches (0 = launched).
+// of scratch (64 or 864 floats each). h and w must be even; in bf16 x, g
+// and the pooled output must be 16-byte aligned. bf16 runs the tensor-core
+// kernels, float32 the f32-pipe kernels. Each returns the cudaError_t of
+// its launches (0 = launched).
 
 extern "C" int podtpu_stem_stats(const void* x, const void* w, void* partials,
                                  int max_blocks, void* out, int b, int h,
@@ -1224,8 +1484,12 @@ extern "C" int podtpu_stem_stats(const void* x, const void* w, void* partials,
   if (bad_shape(b, h, wd) || max_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? stats<__nv_bfloat16>(x, w, partials, max_blocks, out, b, h, wd, st)
-              : stats<float>(x, w, partials, max_blocks, out, b, h, wd, st);
+  if (!bf16)
+    return sum_pass<float>(stats_kernel<float>, 2 * kCo, x, w, partials,
+                           max_blocks, out, b, h, wd, st);
+  if (misaligned(x)) return static_cast<int>(cudaErrorMisalignedAddress);
+  return sum_pass<__nv_bfloat16>(stats_tc_kernel, 2 * kCo, x, w, partials,
+                                 max_blocks, out, b, h, wd, st);
 }
 
 extern "C" int podtpu_stem_emit(const void* x, const void* w, const void* vec,
@@ -1233,8 +1497,10 @@ extern "C" int podtpu_stem_emit(const void* x, const void* w, const void* vec,
                                 void* stream) {
   if (bad_shape(b, h, wd)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? emit<__nv_bfloat16>(x, w, vec, out, b, h, wd, st)
-              : emit<float>(x, w, vec, out, b, h, wd, st);
+  if (!bf16)
+    return emit_pass<float>(emit_kernel<float>, x, w, vec, out, b, h, wd, st);
+  if (misaligned(x, out)) return static_cast<int>(cudaErrorMisalignedAddress);
+  return emit_pass<__nv_bfloat16>(emit_tc_kernel, x, w, vec, out, b, h, wd, st);
 }
 
 extern "C" int podtpu_stem_bwd_sums(const void* x, const void* w,
@@ -1242,35 +1508,14 @@ extern "C" int podtpu_stem_bwd_sums(const void* x, const void* w,
                                     void* partials, int max_blocks, void* out,
                                     int b, int h, int wd, int bf16,
                                     void* stream) {
-  return bwd_entry(false, Route::kTensorCores, x, w, vec, g, partials,
-                   max_blocks, out, b, h, wd, bf16, stream);
+  return bwd_entry(false, x, w, vec, g, partials, max_blocks, out, b, h, wd,
+                   bf16, stream);
 }
 
 extern "C" int podtpu_stem_bwd_dw(const void* x, const void* w, const void* vec,
                                   const void* g, void* partials, int max_blocks,
                                   void* out, int b, int h, int wd, int bf16,
                                   void* stream) {
-  return bwd_entry(true, Route::kTensorCores, x, w, vec, g, partials,
-                   max_blocks, out, b, h, wd, bf16, stream);
-}
-
-// The first-generation backward kernels in bf16 too (the conv and dW on the
-// f32 pipes), kept for timing them against the tensor-core kernels on one
-// card. In float32 they are the kernels the entry points above run.
-extern "C" int podtpu_stem_bwd_sums_v1(const void* x, const void* w,
-                                       const void* vec, const void* g,
-                                       void* partials, int max_blocks,
-                                       void* out, int b, int h, int wd,
-                                       int bf16, void* stream) {
-  return bwd_entry(false, Route::kF32Pipes, x, w, vec, g, partials,
-                   max_blocks, out, b, h, wd, bf16, stream);
-}
-
-extern "C" int podtpu_stem_bwd_dw_v1(const void* x, const void* w,
-                                     const void* vec, const void* g,
-                                     void* partials, int max_blocks, void* out,
-                                     int b, int h, int wd, int bf16,
-                                     void* stream) {
-  return bwd_entry(true, Route::kF32Pipes, x, w, vec, g, partials,
-                   max_blocks, out, b, h, wd, bf16, stream);
+  return bwd_entry(true, x, w, vec, g, partials, max_blocks, out, b, h, wd,
+                   bf16, stream);
 }

@@ -18,14 +18,14 @@ pooled and its cotangent are NHWC ``[B, H/2, W/2, 32]``.
   :func:`stem_bwd_dw` — one wrapper per kernel: a CUDA tensor launches the
   kernel (or the call raises), a CPU tensor runs its plain version
   (``*_reference``).
-  In bf16 the two backward wrappers launch the tensor-core kernels
-  (``bwd_tc_kernel``); :func:`check_bwd_v1` launches the first-generation
-  bf16 kernels they replaced, for timing and comparing the two on one card,
-  and nothing else may call it.
-* :func:`stem_bwd_sums_im2col`, :func:`stem_bwd_dw_im2col` — the two
-  backward passes written as the tensor-core kernels compute them (an
-  im2col matrix with zero-padded tap columns, two matrix products); the
-  tests hold them against the plain versions.
+  In bf16 all four launch the tensor-core kernels, which share one conv
+  core, so the backward recomputes the forward's pre-activations bit for
+  bit; in float32 the kernels that run the conv on the float32 pipes.
+* :func:`stem_stats_im2col`, :func:`stem_emit_im2col`,
+  :func:`stem_bwd_sums_im2col`, :func:`stem_bwd_dw_im2col` — the four
+  passes written as the tensor-core kernels compute them (an im2col matrix
+  with zero-padded tap columns, one float32 product rounded once; dW as a
+  second product); the tests hold them against the plain versions.
 * :func:`stem_pool_reference_torch` — the plain PyTorch version of the
   whole op (compute-dtype conv, float32 batch statistics, folded affine,
   ReLU, ``max_pool2d``; autograd's backward). It mirrors ``podtpu``'s
@@ -38,7 +38,6 @@ pooled and its cotangent are NHWC ``[B, H/2, W/2, 32]``.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 import torch.nn.functional as F
@@ -57,8 +56,6 @@ _ARGTYPES = {
     "bwd_sums": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "bwd_dw": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
 }
-_ARGTYPES["bwd_sums_v1"] = _ARGTYPES["bwd_sums"]
-_ARGTYPES["bwd_dw_v1"] = _ARGTYPES["bwd_dw"]
 
 
 def _kernel(name: str):
@@ -207,6 +204,18 @@ def _im2col_pre(x, w):
     return col, pre.reshape(b, h, wd, CO).permute(0, 3, 1, 2)
 
 
+def stem_stats_im2col(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`stem_stats_reference` with the conv as an im2col product."""
+    p = _im2col_pre(x, w)[1].float()
+    return torch.stack([p.sum(dim=(0, 2, 3)), (p * p).sum(dim=(0, 2, 3))])
+
+
+def stem_emit_im2col(x, w, mul, add) -> torch.Tensor:
+    """:func:`stem_emit_reference` with the conv as an im2col product."""
+    z = torch.relu(_affine(_im2col_pre(x, w)[1], mul, add))
+    return F.max_pool2d(z, 2, 2).permute(0, 2, 3, 1)
+
+
 def stem_bwd_sums_im2col(x, w, mul, add, mean, rinv, g) -> torch.Tensor:
     """:func:`stem_bwd_sums_reference` with the conv as an im2col product."""
     _, pre = _im2col_pre(x, w)
@@ -258,8 +267,16 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"stem_fused {name} launch failed: cudaError {err}")
 
 
+def _check_aligned(name: str, *tensors: torch.Tensor):
+    """The kernels move x, g and the pooled output in 16-byte pieces."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"stem_fused {name}: x, g and the pooled output "
+                         f"must be 16-byte aligned")
+
+
 def _launch_stats(x, w) -> torch.Tensor:
     b, h, wd, _ = x.shape
+    _check_aligned("stats", x)
     partials = torch.empty((MAX_BLOCKS, 2 * CO), dtype=torch.float32,
                            device=x.device)
     out = torch.empty((2, CO), dtype=torch.float32, device=x.device)
@@ -277,6 +294,7 @@ def _launch_stats(x, w) -> torch.Tensor:
 def _launch_emit(x, w, mul, add) -> torch.Tensor:
     b, h, wd, _ = x.shape
     out = torch.empty((b, h // 2, wd // 2, CO), dtype=x.dtype, device=x.device)
+    _check_aligned("emit", x, out)
     wk = _wk(w, x.dtype)
     vec = torch.stack([mul, add]).contiguous()
     with torch.cuda.device(x.device):
@@ -288,11 +306,9 @@ def _launch_emit(x, w, mul, add) -> torch.Tensor:
     return out
 
 
-def _launch_bwd(name, x, w, vec, g, cols, counted=True) -> torch.Tensor:
+def _launch_bwd(name, x, w, vec, g, cols) -> torch.Tensor:
     b, h, wd, _ = x.shape
-    if x.data_ptr() % 16 or g.data_ptr() % 16:
-        # the kernels move x and g in 16-byte pieces
-        raise ValueError(f"stem_fused {name}: x and g must be 16-byte aligned")
+    _check_aligned(name, x, g)
     partials = torch.empty((MAX_BLOCKS, cols), dtype=torch.float32,
                            device=x.device)
     out = torch.empty((cols,), dtype=torch.float32, device=x.device)
@@ -303,8 +319,7 @@ def _launch_bwd(name, x, w, vec, g, cols, counted=True) -> torch.Tensor:
                             out.data_ptr(), b, h, wd,
                             int(x.dtype == torch.bfloat16), _stream(x))
     _raise_on(err, name)
-    if counted:
-        stem_fused.launches[name] += 1
+    stem_fused.launches[name] += 1
     return out
 
 
@@ -367,25 +382,6 @@ def stem_bwd_dw(x, w, mul, add, mean, rinv, inv, c0, c1, g) -> torch.Tensor:
     _check_cuda("stem_bwd_dw", x, w, mul, add, mean, rinv, inv, c0, c1, g)
     vec = _vec7(mul, add, mean, rinv, inv, c0, c1)
     return _launch_bwd("bwd_dw", x, w, vec, g, 9 * CI * CO).view(3, 3, CI, CO)
-
-
-def check_bwd_v1(name, x, w, mul, add, mean, rinv, inv, c0, c1, g):
-    """``name`` = "bwd_sums" or "bwd_dw": that pass ([2, 32] or
-    [3, 3, 3, 32]) from the first-generation backward kernels (conv and dW
-    on the float32 pipes in bf16 too), which :func:`stem_bwd_sums` and
-    :func:`stem_bwd_dw` launched before their bf16 path moved to the tensor
-    cores. For timing and comparing old and new on one card; not counted in
-    ``stem_fused.launches``."""
-    _check_x(x)
-    _check_w(w)
-    _check_vec(mul=mul, add=add, mean=mean, rinv=rinv, inv=inv, c0=c0, c1=c1)
-    _check_g(g, x)
-    _check_cuda("check_bwd_v1", x, w, mul, add, mean, rinv, inv, c0, c1, g)
-    vec = _vec7(mul, add, mean, rinv, inv, c0, c1)
-    shape = {"bwd_sums": (2, CO), "bwd_dw": (3, 3, CI, CO)}[name]
-    out = _launch_bwd(name + "_v1", x, w, vec, g, math.prod(shape),
-                      counted=False)
-    return out.view(shape)
 
 
 # ---- the op ---------------------------------------------------------------

@@ -139,46 +139,59 @@ def _cos(a, r):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w", [(2, 64, 64), (2, 416, 416), (3, 40, 70),
                                    (8, 416, 416)])
-def test_tensor_core_backward_matches_first_generation(cuda, b, h, w):
-    """bf16: the tensor-core backward kernels against the first-generation
-    kernels they replaced (the conv summed by fmaf in tap order). The two
-    differ only where a pre-activation rounds to the neighbouring bf16
-    value: cosine >= 0.9999 and 2e-3 of the max, the limit the kernels are
-    held to against their plain versions. At (8, 416, 416) a block walks
-    several tiles (2,704 tiles over one wave of blocks), so the dW
-    accumulators that live in registers across tiles and both load stages
-    are exercised; there the plain versions are compared too."""
+def test_tensor_core_kernels_share_one_conv(cuda, b, h, w):
+    """bf16: all four kernels run one conv core, so forward and backward
+    agree exactly. With a cotangent of ones bwd_sums' first row counts the
+    pool windows of a channel whose max is positive, and those are the
+    windows emit wrote as positive, in all 32 channels. At (3, 40, 70) the
+    tiles are ragged (the conv beyond the border must stay out of stats and
+    out of the output); at (8, 416, 416) a block walks several tiles (2,704
+    tiles over one wave of blocks), so both load stages, the output stage
+    and the sums that live in registers across tiles are exercised. Each
+    kernel gives the same bits twice and stays within the card checks'
+    limits of its plain version."""
     torch.backends.cudnn.allow_tf32 = False
     x, wt, scale, bias, g = _stem_operands(b, h, w, torch.bfloat16, cuda, 1)
     vecs, u_r = _bwd_vectors(x, wt, scale, bias, g)
+    mul, add, mean, rinv = vecs[:4]
     before = dict(sk.stem_fused.launches)
-    u_k = sk.stem_bwd_sums(x, wt, *vecs[:4], g)
+    s_k = sk.stem_stats(x, wt)
+    p_k = sk.stem_emit(x, wt, mul, add)
+    u_k = sk.stem_bwd_sums(x, wt, mul, add, mean, rinv, g)
     d_k = sk.stem_bwd_dw(x, wt, *vecs, g)
-    u_1 = sk.check_bwd_v1("bwd_sums", x, wt, *vecs, g)
-    d_1 = sk.check_bwd_v1("bwd_dw", x, wt, *vecs, g)
+    positive = sk.stem_bwd_sums(x, wt, mul, add, mean, rinv,
+                                torch.ones_like(g))[0]
     torch.cuda.synchronize()
-    # the first-generation kernels are not the main path's: not counted
     assert {k: v - before[k] for k, v in sk.stem_fused.launches.items()} == {
-        "stats": 0, "emit": 0, "bwd_sums": 1, "bwd_dw": 1}
-    for got, was in ((u_k, u_1), (d_k, d_1)):
-        assert got.shape == was.shape
-        assert _rel(got, was) <= 2e-3
-        assert _cos(got, was) >= 0.9999
-    if b == 8:
-        d_r = sk.stem_bwd_dw_reference(x, wt, *vecs, g)
-        for got, want in ((u_k, u_r), (d_k, d_r)):
-            assert _rel(got, want) <= 2e-3
-            assert _cos(got, want) >= 0.995
+        "stats": 1, "emit": 1, "bwd_sums": 2, "bwd_dw": 1}
+    assert torch.equal(positive, (p_k > 0).sum(dim=(0, 1, 2)).float())
+    assert torch.equal(s_k, sk.stem_stats(x, wt))
+    assert torch.equal(p_k, sk.stem_emit(x, wt, mul, add))
+    assert torch.equal(u_k, sk.stem_bwd_sums(x, wt, mul, add, mean, rinv, g))
+    assert torch.equal(d_k, sk.stem_bwd_dw(x, wt, *vecs, g))
+    assert _rel(s_k, sk.stem_stats_reference(x, wt)) <= 1e-3
+    p_r = sk.stem_emit_reference(x, wt, mul, add)
+    diff = (p_k.float() - p_r.float()).abs()
+    assert float((diff > 0).float().mean()) <= 1e-3
+    assert float(diff.max()) <= 2.0 ** -7 * float(p_r.float().abs().max())
+    d_r = sk.stem_bwd_dw_reference(x, wt, *vecs, g)
+    for got, want in ((u_k, u_r), (d_k, d_r)):
+        assert _rel(got, want) <= 2e-3
+        assert _cos(got, want) >= 0.995
 
 
 @pytest.mark.cuda
-def test_backward_kernels_reject_misaligned_tensors(cuda):
+def test_kernels_reject_misaligned_tensors(cuda):
     x, wt, scale, bias, g = _stem_operands(2, 16, 16, torch.bfloat16, cuda)
     vecs, _ = _bwd_vectors(x, wt, scale, bias, g)
     flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=cuda)
     off = flat[1:].view_as(x).copy_(x)    # contiguous, 2 bytes off alignment
     with pytest.raises(ValueError, match="16-byte aligned"):
         sk.stem_bwd_sums(off, wt, *vecs[:4], g)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sk.stem_stats(off, wt)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sk.stem_emit(off, wt, *vecs[:2])
 
 
 @pytest.mark.cuda

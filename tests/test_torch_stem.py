@@ -371,8 +371,68 @@ def test_im2col_bf16_gradient_direction():
         assert _cosine(g, wnt) >= 0.995
 
 
-def test_check_bwd_v1_takes_cuda_tensors_only():
-    x, wt, g, n, vecs, inv = _bwd_operands((2, 16, 16), torch.bfloat16)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        stem_kernel.check_bwd_v1("bwd_dw", x, wt, *vecs, inv, vecs[2],
-                                 vecs[2], g)
+# ---- the forward as the tensor-core kernels compute it --------------------
+
+@pytest.mark.parametrize("cdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 16, 16), (2, 24, 40), (3, 40, 70)])
+def test_im2col_forward_equals_plain_versions(cdtype, shape):
+    """stats and emit with the conv as one float32 product over the im2col
+    matrix, rounded once (the arithmetic of the tensor-core kernels),
+    against the plain versions (F.conv2d): float32 within 1e-5 of the
+    result's max (another summation order); bf16 stats within 1e-3 and the
+    pooled output at the card check's limits, differing on at most 1e-3 of
+    the elements by at most 2^-7 of the max (a pre-activation may round to
+    the neighbouring bf16 value)."""
+    dt = TORCH_DTYPE[cdtype]
+    x, wt, _, _, (mul, add, _, _), _ = _bwd_operands(shape, dt)
+    s_r = stem_kernel.stem_stats_reference(x, wt)
+    s_i = stem_kernel.stem_stats_im2col(x, wt)
+    p_r = stem_kernel.stem_emit_reference(x, wt, mul, add)
+    p_i = stem_kernel.stem_emit_im2col(x, wt, mul, add)
+    assert s_i.shape == (2, CO) and s_i.dtype == torch.float32
+    assert p_i.shape == p_r.shape and p_i.dtype == dt
+    diff = (p_i.float() - p_r.float()).abs()
+    if cdtype == "float32":
+        assert _rel(s_i, s_r) <= 1e-5
+        assert float(diff.max()) <= 1e-5 * max(1.0, float(p_r.abs().max()))
+    else:
+        assert _rel(s_i, s_r) <= 1e-3
+        assert float((diff > 0).float().mean()) <= 1e-3
+        assert float(diff.max()) <= 2.0 ** -7 * float(p_r.float().abs().max())
+
+
+def _im2col_forward(x, w, scale, bias, dtype):
+    """The whole op's forward built from the im2col passes, as
+    ``StemPoolFunction.forward`` builds it from the kernels."""
+    x = x.to(dtype)
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    s = stem_kernel.stem_stats_im2col(x, w)
+    mean = s[0] / n
+    var = (s[1] / n - mean * mean).clamp_min(0.0)
+    inv = torch.rsqrt(var + EPS) * scale
+    mul = inv.to(dtype).float()
+    add = (bias - mean * inv).to(dtype).float()
+    return stem_kernel.stem_emit_im2col(x, w, mul, add), mean, var
+
+
+@pytest.mark.parametrize("cdtype", ["float32", "bfloat16"])
+def test_im2col_forward_matches_podtpu(cdtype):
+    """The forward from the im2col passes against podtpu's fused stem
+    (Pallas, interpret mode), at the tolerances of
+    ``test_plain_forward_matches_podtpu``."""
+    x, w, scale, bias = _inputs()
+    got = [t.float().numpy() for t in _im2col_forward(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(scale),
+        torch.from_numpy(bias), TORCH_DTYPE[cdtype])]
+    fused = make_fused_stem(H, W, CI, CO, cdtype, EPS)
+    wp, wm, wv = (np.asarray(a, np.float32) for a in fused(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale), jnp.asarray(bias)))
+    stat_tol = 1e-5 if cdtype == "float32" else 1e-4
+    np.testing.assert_allclose(got[1], wm, atol=stat_tol)
+    np.testing.assert_allclose(got[2], wv, atol=stat_tol)
+    if cdtype == "float32":
+        np.testing.assert_allclose(got[0], wp, atol=1e-5)
+    else:
+        diff = np.abs(got[0] - wp)
+        assert (diff > 0).mean() <= 0.01
+        assert diff.max() <= 2.0 ** -7 * np.abs(wp).max()

@@ -62,6 +62,21 @@ inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 v) { return v.bits; }
 struct alignas(4) __nv_bfloat162 { __nv_bfloat16 x, y; };
 inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) { return {__float2bfloat16_rn(lo), __float2bfloat16_rn(hi)}; }
 inline __nv_bfloat162 __float2bfloat162_rn(float v) { return __floats2bfloat162_rn(v, v); }
+inline __nv_bfloat16 __low2bfloat16(__nv_bfloat162 v) { return v.x; }
+inline __nv_bfloat16 __high2bfloat16(__nv_bfloat162 v) { return v.y; }
+inline __nv_bfloat162 __lows2bfloat162(__nv_bfloat162 a, __nv_bfloat162 b) { return {a.x, b.x}; }
+inline __nv_bfloat162 __highs2bfloat162(__nv_bfloat162 a, __nv_bfloat162 b) { return {a.y, b.y}; }
+// max.NaN: a NaN operand gives the canonical NaN; +0 is above -0
+inline __nv_bfloat16 cuda_mock_max_nan(__nv_bfloat16 a, __nv_bfloat16 b) {
+  const float fa = __uint_as_float(static_cast<unsigned int>(a.bits) << 16);
+  const float fb = __uint_as_float(static_cast<unsigned int>(b.bits) << 16);
+  if (std::isnan(fa) || std::isnan(fb)) return {static_cast<uint16_t>(0x7fff)};
+  if (fa == fb) return {static_cast<uint16_t>(a.bits & b.bits)};  // -0 only if both
+  return fa > fb ? a : b;
+}
+inline __nv_bfloat162 __hmax2_nan(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return {cuda_mock_max_nan(a.x, b.x), cuda_mock_max_nan(a.y, b.y)};
+}
 inline float __low2float(__nv_bfloat162 v) { return __bfloat162float(v.x); }
 inline float __high2float(__nv_bfloat162 v) { return __bfloat162float(v.y); }
 // one rounding of the exact result (computed in double: exact for bf16 operands)
@@ -124,6 +139,8 @@ inline Warp& warp() { return block->warps[threadIdx.x / 32]; }
 }  // namespace cuda_mock
 
 inline void __syncthreads() { cuda_mock::block->bar.arrive_and_wait(); }
+
+inline void __syncwarp() { cuda_mock::warp().bar.arrive_and_wait(); }
 
 namespace cuda_mock {
 
