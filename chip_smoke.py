@@ -8,8 +8,15 @@ Phases, each printing one JSON line and raising on failure:
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: every ``podtpu_torch/csrc/*.cu`` built with nvcc from the
    checkout, with the build's seconds and ptxas' resource report;
-3. kernels: each kernel of the serving path held against its plain PyTorch
-   version at the path's shapes (keep masks must be identical), and timed;
+3. kernels: the suppression kernels held against their plain PyTorch
+   version (keep masks must be identical) at the path's shapes (random and
+   real YOLOv3 candidates, B=8 and 64) and at the edges of the design
+   (ragged words, K = 300 and 513; K = ``MAX_K`` at B=2; nothing valid; a
+   dense cluster with long chains), then timed: through the wrapper back to
+   back (``ms``), on the device alone from a CUDA graph of 100 calls
+   (``device_ms``), each of the two kernels alone (``mask_ms``,
+   ``scan_ms``), at B=8 and B=64, with the kept boxes and the steps of
+   the scan's dependent chain (counted on the host);
 4. slice: YOLOv3-416, bf16, 20 VOC classes, seeded random weights carried
    in through the port's weight loader, served through ``Engine`` and
    ``MicroBatcher`` (batch 8) from several threads. The kernel counters are
@@ -175,6 +182,142 @@ def suppress_bound(boxes, valid, thr):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def dense_cluster(rng, b, k, device):
+    """Overlapping boxes of one class, all valid. In the first half of the
+    batch 10 px squares 3 px apart: each removes the next and not the one
+    after, so greedy keeps every other box, each decided by the one removed
+    before it (a chain as long as the image, across every word). In the
+    second half boxes packed into a 60 px square (long runs of removals)."""
+    x = np.arange(k, dtype=np.float32) * np.float32(3.0)
+    z = np.zeros(k, np.float32)
+    slide = np.stack([x, z, x + 10, z + 10], -1)
+    c = rng.uniform(0, 60, (b - b // 2, k, 2))
+    wh = rng.uniform(20, 60, (b - b // 2, k, 2))
+    packed = np.concatenate([c - wh / 2, c + wh / 2], -1)
+    boxes = np.concatenate([np.broadcast_to(slide, (b // 2, k, 4)), packed])
+    return (torch.from_numpy(boxes.astype(np.float32)).to(device),
+            torch.ones((b, k), dtype=torch.bool, device=device))
+
+
+def yolo_candidates(model, decoder, cfg, images):
+    """{b: (boxes, valid)}: what the serving path hands suppression for
+    ``images`` (score-sorted class-offset boxes and their validity)."""
+    from podtpu_torch.ops.nms import _select_candidates
+    from podtpu_torch.train.steps import _as_input
+
+    out = {}
+    with torch.inference_mode():
+        for b, x in images.items():
+            cand = _select_candidates(decoder(model(_as_input(x))),
+                                      float(cfg["conf_threshold"]),
+                                      int(cfg["top_k_candidates"]))
+            out[b] = (cand[2].contiguous(), cand[1])
+    return out
+
+
+def graph_ms(fn, calls: int = 100, replays: int = 5) -> float:
+    """Device ms of one ``fn()``: ``calls`` calls captured in one CUDA graph
+    and replayed, so that the host's enqueue is not in the time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def profiler_ms(fn, calls: int = 100) -> float:
+    """Device ms of one ``fn()``: its kernels' times in a ``torch.profiler``
+    trace of ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / calls
+
+
+def device_ms(fn, calls: int = 100) -> tuple[float, str]:
+    """(ms, how): from a CUDA graph, or where capture fails from the
+    profiler's kernel times."""
+    try:
+        return graph_ms(fn, calls), "cuda_graph"
+    except RuntimeError as exc:
+        return profiler_ms(fn, calls), f"torch.profiler ({exc})"
+
+
+def suppress_halves(boxes, valid, thr):
+    """(mask_ms, scan_ms, keep): ``csrc/nms_suppress.cu``'s two kernels
+    through their own C entry points on scratch made once, each timed by
+    :func:`device_ms`, and the keep mask the two give."""
+    from podtpu_torch.ops.kernels import nms_kernel as nk
+
+    b, k = valid.shape
+    mask = torch.empty((b, k, nk.mask_words(k)), dtype=torch.int64,
+                       device=boxes.device)
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+
+    def call(name, *args):
+        err = nk._kernel(name)(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"podtpu_nms_{name}: cudaError {err}")
+
+    def run_mask():
+        call("iou_mask", boxes.data_ptr(), mask.data_ptr(), b, k, thr)
+
+    def run_scan():
+        call("scan", mask.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k)
+
+    mask_ms, scan_ms = device_ms(run_mask)[0], device_ms(run_scan)[0]
+    run_mask()
+    run_scan()
+    return mask_ms, scan_ms, keep
+
+
+def chain_steps(boxes, valid, thr) -> dict:
+    """The dependent steps of ``csrc/nms_suppress.cu``'s scan on these
+    inputs, counted on the host: in each 64-box word the chain takes, in
+    index order, the boxes still alive whose row meets a box of the word
+    alive when the word began; the other kept boxes cost no step. Returns
+    the total and the largest count per image (the images run side by
+    side, so the largest is the one the time sees)."""
+    from podtpu_torch.ops.boxes import pairwise_iou
+
+    sup = (pairwise_iou(boxes, boxes) > thr).cpu().numpy()
+    sup &= np.triu(np.ones(sup.shape[1:], bool), 1)
+    steps = []
+    for img, ok in zip(sup, valid.cpu().numpy()):
+        removed, n = ~ok, 0
+        for w0 in range(0, len(ok), 64):
+            word = slice(w0, w0 + 64)
+            alive0 = ~removed[word]
+            meet = (img[word, word] & alive0[None, :]).any(1)
+            for t in np.flatnonzero(alive0 & meet):
+                if not removed[w0 + t]:
+                    n += 1
+                    removed[word] |= img[w0 + t, word]
+            kept = np.flatnonzero(~removed[word]) + w0
+            removed[w0 + 64:] |= img[kept, w0 + 64:].any(0)
+        steps.append(n)
+    return {"total": int(sum(steps)), "max_per_image": int(max(steps))}
 
 
 def offset_boxes(rng, b, k, device):
@@ -759,11 +902,11 @@ def main() -> int:
     from podtpu_torch.models.factory import build_model
     from podtpu_torch.ops.kernels import build
     from podtpu_torch.ops.kernels.nms_kernel import (
+        MAX_K,
         greedy_suppress,
         greedy_suppress_reference,
     )
     from podtpu_torch.ops.kernels.stem_kernel import stem_fused
-    from podtpu_torch.ops.nms import _select_candidates
     from podtpu_torch.serve import Engine
     from podtpu_torch.train.steps import _as_input, _decoder_and_nms
 
@@ -809,18 +952,22 @@ def main() -> int:
     images = {b: torch.from_numpy(rng.integers(
         0, 256, (b, 416, 416, 3), dtype=np.uint8)).to(dev) for b in (8, 64)}
 
-    # 3. kernel against its plain version, at the path's shapes
+    # 3. the suppression kernels against their plain version, at the path's
+    # shapes and at the edges of the design
+    real = yolo_candidates(engine.model, decoder, cfg, images)
     with torch.inference_mode():
-        real = {}
-        for b, x in images.items():
-            cand = _select_candidates(decoder(engine.model(_as_input(x))),
-                                      float(cfg["conf_threshold"]), top_k)
-            real[b] = (cand[2].contiguous(), cand[1])
         cases = {f"random_B{b}": offset_boxes(rng, b, top_k, dev)
                  for b in (8, 64)}
         cases.update({f"yolov3_B{b}": real[b] for b in (8, 64)})
+        cases.update({f"random_K{k}_B8": offset_boxes(rng, 8, k, dev)
+                      for k in (300, 513)})
+        cases[f"random_K{MAX_K}_B2"] = offset_boxes(rng, 2, MAX_K, dev)
+        boxes = offset_boxes(rng, 8, top_k, dev)[0]
+        cases["all_invalid_B8"] = (boxes, torch.zeros_like(boxes[..., 0],
+                                                           dtype=torch.bool))
+        cases["dense_cluster_B8"] = dense_cluster(rng, 8, top_k, dev)
         before = greedy_suppress.launches
-        checks, max_abs_err = [], 0.0
+        checks, max_abs_err, kept = [], 0.0, {}
         for name, (boxes, valid) in cases.items():
             got = greedy_suppress(boxes, valid, thr)
             torch.cuda.synchronize()
@@ -828,8 +975,10 @@ def main() -> int:
             mismatches = int((got != want).sum())
             max_abs_err = max(max_abs_err, float(
                 (got.float() - want.float()).abs().max()))
+            kept[name] = {"total": int(got.sum()),
+                          "max_per_image": int(got.sum(1).max())}
             checks.append({"case": name, "shape": list(boxes.shape),
-                           "valid": int(valid.sum()), "kept": int(got.sum()),
+                           "valid": int(valid.sum()), "kept": kept[name],
                            "mismatches": mismatches})
             if mismatches:
                 raise AssertionError(f"greedy_suppress differs from its plain "
@@ -837,22 +986,36 @@ def main() -> int:
         if greedy_suppress.launches != before + len(cases):
             raise AssertionError("greedy_suppress's launch counter did not "
                                  "move with its launches")
-        # timed at the serving path's own shape: B=8 images of real candidates
+        # timed at the serving path's own shapes: real candidates, B=8, 64
+        timing = {}
+        for b in (8, 64):
+            boxes, valid = real[b]
+            run = lambda: greedy_suppress(boxes, valid, thr)  # noqa: E731
+            t = timing[f"B{b}"] = {
+                "ms": cuda_ms(run, 200 if b == 8 else 100, warmup=10)}
+            t["device_ms"], t["device_ms_by"] = device_ms(run)
+            t["mask_ms"], t["scan_ms"], halves = suppress_halves(boxes, valid,
+                                                                 thr)
+            t["kept"] = kept[f"yolov3_B{b}"]
+            t["chain_steps"] = chain_steps(boxes, valid, thr)
+            if not torch.equal(halves, greedy_suppress_reference(
+                    boxes, valid, thr)):
+                raise AssertionError(f"the two halves of the suppression "
+                                     f"differ from the plain version at B={b}")
         boxes, valid = real[8]
-        kernel_ms = cuda_ms(lambda: greedy_suppress(boxes, valid, thr), 200,
-                            warmup=10)
+        kernel_ms, dev_ms = timing["B8"]["ms"], timing["B8"]["device_ms"]
         plain_ms = cuda_ms(
             lambda: greedy_suppress_reference(boxes, valid, thr), 5)
         bound_ms, bound_by, nbytes, nops = suppress_bound(boxes, valid, thr)
-        b64_ms = cuda_ms(lambda: greedy_suppress(*real[64], thr), 100,
-                         warmup=10)
+        b64_ms = timing["B64"]["ms"]
     emit({"phase": "kernels", "checks": checks, "tolerance": "exact keep masks",
           "greedy_suppress": {"replaces": REPLACES, "launches": len(cases),
                               "mismatches": sum(c["mismatches"] for c in checks),
                               "shape": list(boxes.shape), "ms": kernel_ms,
-                              "plain_ms": plain_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by, "bytes": nbytes,
-                              "ops": nops, "ms_B64": b64_ms, "card": card}})
+                              "device_ms": dev_ms, "ms_B64": b64_ms,
+                              "timing": timing, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "bytes": nbytes, "ops": nops, "card": card}})
 
     # 4. the slice: serve requests through Engine + MicroBatcher
     n_threads, per_thread = 4, 6
@@ -972,6 +1135,8 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
+        "device_ms": dev_ms,
+        "ms_B64": b64_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,

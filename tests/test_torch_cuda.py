@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from podtpu_torch.ops.boxes import pairwise_iou
 from podtpu_torch.ops.kernels import stem_kernel as sk
 from podtpu_torch.ops.kernels.nms_kernel import (
     greedy_suppress,
@@ -37,15 +38,44 @@ def _offset_boxes(rng, b, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,k", [(8, 512), (64, 512), (3, 4096), (2, 1)])
-def test_suppress_kernel_matches_reference(cuda, b, k):
+@pytest.mark.parametrize("b,k,none_valid", [
+    (8, 512, False), (64, 512, False), (3, 4096, False), (2, 1, False),
+    (2, 8192, False),                     # MAX_K: 128 words a row
+    (4, 300, False), (4, 513, False),     # ragged last word
+    (8, 512, True),                       # nothing valid: the scan ends at once
+])
+def test_suppress_kernel_matches_reference(cuda, b, k, none_valid):
     boxes, valid = _offset_boxes(np.random.default_rng(k + b), b, k)
+    if none_valid:
+        valid = torch.zeros_like(valid)
     boxes, valid = boxes.to(cuda), valid.to(cuda)
     before = greedy_suppress.launches
     got = greedy_suppress(boxes, valid, 0.45)
     torch.cuda.synchronize()
     assert greedy_suppress.launches == before + 1
     assert torch.equal(got, greedy_suppress_reference(boxes, valid, 0.45))
+
+
+@pytest.mark.cuda
+def test_suppress_kernel_is_exact_at_the_threshold(cuda):
+    """The threshold set to a pair's float32 IoU and to the floats either
+    side of it: the kernel's IoU and compare decide as the plain version's
+    (kept, removed, kept); one rounding apart (an FMA, a fast division)
+    flips them."""
+    rng = np.random.default_rng(7)
+    valid = torch.ones((1, 2), dtype=torch.bool, device=cuda)
+    for _ in range(50):
+        a, _ = _offset_boxes(rng, 1, 1)
+        b = a + torch.from_numpy(rng.uniform(-20, 20, (1, 1, 4)).astype(
+            np.float32))
+        boxes = torch.cat([a, b], 1).to(cuda)
+        iou = np.float32(pairwise_iou(boxes, boxes)[0, 0, 1].item())
+        for t, want in ((iou, True), (np.nextafter(iou, np.float32(-1)), False),
+                        (np.nextafter(iou, np.float32(2)), True)):
+            got = greedy_suppress(boxes, valid, float(t))
+            assert torch.equal(got, greedy_suppress_reference(boxes, valid,
+                                                              float(t)))
+            assert bool(got[0, 1]) is want
 
 
 @pytest.mark.cuda

@@ -7,15 +7,17 @@
 //       -I tools/cuda_mock -o stem_fused_mock.so podtpu_torch/csrc/stem_fused.cu
 //
 // The library exports the source's C entry points; call them with CPU
-// pointers and a null stream (tests/test_torch_stem_mock.py does).
+// pointers and a null stream (tests/test_torch_stem_mock.py and
+// tests/test_torch_nms_mock.py do).
 //
 // One std::thread per CUDA thread, a std::barrier per block for
 // __syncthreads and one per warp for the warp-wide instructions; blocks run
-// one after another. The PTX instructions the sources wrap in functions
-// (cp.async, ldmatrix, mma.sync, shfl) are emulated here by their documented
-// lane -> row / column layouts: cp.async copies are queued and carried out
-// only by the wait, so a missing wait shows as missing data. It says
-// nothing about speed, bank conflicts or what nvcc accepts.
+// one after another. The PTX instructions and warp intrinsics the sources
+// wrap in functions (cp.async, ldmatrix, mma.sync, shfl, ballot) are
+// emulated here by their documented lane -> row / column layouts: cp.async
+// copies are queued and carried out only by the wait that covers their
+// group, so a missing wait shows as missing data. It says nothing about
+// speed, bank conflicts or what nvcc accepts.
 #pragma once
 #define PODTPU_CUDA_MOCK 1
 #define PODTPU_PTX_EMULATED 1
@@ -105,6 +107,12 @@ inline __nv_bfloat162 __hadd2_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+// 1 + the index of the lowest set bit (0 for 0); leading zeros
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
+inline int __clzll(long long x) {
+  return x ? __builtin_clzll(static_cast<unsigned long long>(x)) : 64;
+}
 
 // ---- the running thread's place in the grid -----------------------------------
 namespace cuda_mock {
@@ -122,10 +130,23 @@ struct Block {
   std::vector<Warp> warps;
 };
 
-struct PendingCopy { void* dst; const void* src; int bytes; };
+// a cp.async: `bytes` copied, the rest of its `span` zero-filled
+struct PendingCopy { void* dst; const void* src; int bytes; int span = 16; };
 
 inline thread_local Block* block = nullptr;
 inline thread_local std::vector<PendingCopy> pending;
+// pending.size() at each commit still in flight, oldest first
+inline thread_local std::vector<size_t> groups;
+
+// Carries out the first n pending copies.
+inline void carry_out(size_t n) {
+  for (size_t i = 0; i < n; ++i) {
+    std::memset(pending[i].dst, 0, pending[i].span);
+    std::memcpy(pending[i].dst, pending[i].src, pending[i].bytes);
+  }
+  pending.erase(pending.begin(), pending.begin() + n);
+  for (auto& g : groups) g = g > n ? g - n : 0;
+}
 
 }  // namespace cuda_mock
 
@@ -161,6 +182,7 @@ void launch(K kernel, int grid, int threads, A... args) {
         blockDim.x = threads;
         block = &blk;
         pending.clear();
+        groups.clear();
         kernel(args...);
       });
     for (auto& th : pool) th.join();
@@ -178,13 +200,23 @@ namespace {
 inline void cp_async16(void* dst, const void* src, int bytes) {
   cuda_mock::pending.push_back({dst, src, bytes});
 }
-inline void cp_async_commit() {}
+inline void cp_async8(void* dst, const void* src) {
+  if (reinterpret_cast<uintptr_t>(dst) % 8 || reinterpret_cast<uintptr_t>(src) % 8)
+    std::abort();
+  cuda_mock::pending.push_back({dst, src, 8, 8});
+}
+inline void cp_async_commit() { cuda_mock::groups.push_back(cuda_mock::pending.size()); }
 inline void cp_async_wait_all() {
-  for (const auto& c : cuda_mock::pending) {
-    std::memset(c.dst, 0, 16);
-    std::memcpy(c.dst, c.src, c.bytes);
-  }
-  cuda_mock::pending.clear();
+  cuda_mock::carry_out(cuda_mock::pending.size());
+  cuda_mock::groups.clear();
+}
+// cp.async.wait_group N: every committed group but the newest N is done
+template <int N>
+inline void cp_async_wait_group() {
+  auto& g = cuda_mock::groups;
+  if (g.size() <= N) return;
+  cuda_mock::carry_out(g[g.size() - 1 - N]);
+  g.erase(g.begin(), g.end() - N);
 }
 
 inline void ldmatrix_impl(const void* row, unsigned int (&r)[4], bool trans) {
@@ -237,6 +269,27 @@ inline void mma_bf16(float (&c)[4], const unsigned int (&a)[4], unsigned int b0,
     c[i] = static_cast<float>(acc);
   }
   w.bar.arrive_and_wait();
+}
+
+inline unsigned int ballot(bool p) {
+  auto& w = cuda_mock::warp();
+  const int lane = threadIdx.x % 32;
+  w.reg[lane][0] = p;
+  w.bar.arrive_and_wait();
+  unsigned int bits = 0;
+  for (int l = 0; l < 32; ++l) bits |= (w.reg[l][0] ? 1u : 0u) << l;
+  w.bar.arrive_and_wait();
+  return bits;
+}
+
+inline unsigned int shfl_xor_bits(unsigned int v, int lane_mask) {
+  auto& w = cuda_mock::warp();
+  const int lane = threadIdx.x % 32;
+  w.reg[lane][0] = v;
+  w.bar.arrive_and_wait();
+  const unsigned int got = w.reg[lane ^ lane_mask][0];
+  w.bar.arrive_and_wait();
+  return got;
 }
 
 inline float shfl_xor(float v, int lane_mask) {
