@@ -44,7 +44,22 @@ Phases, each printing one JSON line and raising on failure:
 8. train reference: two 64 px float32 train steps on the card (the stem's
    kernels) against the same steps on the CPU (the plain version), the
    second also from the card's state; beside them the card with the
-   stem's plain version, as a witness of the card's rounding alone.
+   stem's plain version, as a witness of the card's rounding alone;
+9. fit: the training run through its entry point
+   (``podtpu_torch.train.run.train``) on ``configs/yolov3_voc.yaml``
+   (416 px, bf16, B=64, 8 loader workers) fed from JPEG files written by
+   ``podtpu_torch.data.synthetic`` (128 train and 72 val images at 480 px):
+   2 epochs validated each, then a resume from ``last`` to epoch 3. The
+   kernel counters are zeroed before each run: every train step launches
+   each stem kernel once, every val batch the suppression once, no
+   ``validate`` launches a stem kernel; no CPU tensor in one train and one
+   eval step; ``last``, ``best`` and both ``epoch_NNNN`` are written, and
+   ``best`` restored into a fresh eval-only ``Trainer`` validates to the
+   same ``val_loss`` and ``val_mAP``. Printed with the card: the loader's
+   img/s alone, ``fit``'s img/s and the share of each epoch blocked on the
+   loader, beside phase 7's step on a batch already on the card;
+   ``validate``'s seconds and eval-step ms per batch, the host mAP ms, each
+   checkpoint save's ms and the native matcher's build seconds.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -658,7 +673,8 @@ def synthetic_annotations(cfg, batch, seed):
 
 
 def train_phase(cfg, flat, dev, card):
-    """Phase 7; returns the stem kernels' launch counts of the timed run."""
+    """Phase 7; returns the stem kernels' launch counts of the timed run
+    and its img/s."""
     from podtpu_torch.losses import build_loss
     from podtpu_torch.ops.kernels.nms_kernel import greedy_suppress
     from podtpu_torch.ops.kernels.stem_kernel import stem_fused
@@ -745,7 +761,7 @@ def train_phase(cfg, flat, dev, card):
           "img_per_s": b * 1e3 / step_ms, "split_ms": split,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "card": card})
-    return launches
+    return launches, b * 1e3 / step_ms
 
 
 def _update(after, before):
@@ -889,6 +905,274 @@ class _CpuTensorSpy(TorchDispatchMode):
                and t.dim() > 0 for t in flat):
             self.cpu_ops.append(str(func))
         return out
+
+
+class _TimedLoader:
+    """A train loader seen from its consumer: per epoch, the batches, the
+    wall seconds of the iteration and the seconds ``fit`` was blocked in
+    ``next()`` waiting for the loader."""
+
+    def __init__(self, loader, epochs: list):
+        self._loader, self.epochs = loader, epochs
+
+    def __len__(self):
+        return len(self._loader)
+
+    def set_epoch(self, epoch):
+        self._loader.set_epoch(epoch)
+
+    def __iter__(self):
+        t_start, blocked, n = time.perf_counter(), 0.0, 0
+        it = iter(self._loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            blocked += time.perf_counter() - t0
+            n += 1
+            yield batch
+        wall = time.perf_counter() - t_start
+        self.epochs.append({"batches": n, "seconds": wall, "blocked_s": blocked,
+                            "blocked_share": blocked / wall})
+
+
+class _FitProbes:
+    """Within it, ``train.run.train``'s train loader is a
+    :class:`_TimedLoader`, and each ``Trainer.validate``, each
+    ``CheckpointIO.save`` and the mAP scoring are timed; ``validate`` also
+    records the kernel launches inside it. Only this script's view: the
+    port is not instrumented."""
+
+    def __init__(self):
+        self.epochs, self.validations, self.saves = [], [], []
+
+    def __enter__(self):
+        from podtpu_torch.ops.kernels.nms_kernel import greedy_suppress
+        from podtpu_torch.ops.kernels.stem_kernel import stem_fused
+        from podtpu_torch.train import run
+        from podtpu_torch.train.trainer import CheckpointIO, Trainer
+
+        probes = self
+        self._saved = [(run, "make_loaders", run.make_loaders),
+                       (Trainer, "validate", Trainer.validate),
+                       (CheckpointIO, "save", CheckpointIO.save)]
+        make_loaders, validate, save = (v for _, _, v in self._saved)
+
+        def timed_loaders(cfg):
+            train_loader, val_loader = make_loaders(cfg)
+            return _TimedLoader(train_loader, probes.epochs), val_loader
+
+        def timed_validate(trainer, loader):
+            stem0 = sum(stem_fused.launches.values())
+            nms0 = greedy_suppress.launches
+            step, metric = trainer.eval_step, trainer.map_metric
+            events, host = [], {"update_ms": 0.0, "result_ms": 0.0}
+
+            def eval_step(state, batch):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = step(state, batch)
+                ev[1].record()
+                events.append(ev)
+                return out
+
+            def timed(fn, key):
+                def call(*a):
+                    t0 = time.perf_counter()
+                    out = fn(*a)
+                    host[key] += (time.perf_counter() - t0) * 1e3
+                    return out
+                return call
+
+            trainer.eval_step = eval_step
+            metric.update_state = timed(metric.update_state, "update_ms")
+            metric.result = timed(metric.result, "result_ms")
+            t0 = time.perf_counter()
+            try:
+                out = validate(trainer, loader)
+            finally:
+                trainer.eval_step = step
+                del metric.update_state, metric.result
+            seconds = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in events]
+            probes.validations.append({
+                "seconds": seconds, "batches": len(ms),
+                "eval_step_ms": ms, "map_host_ms": host,
+                "stem_launches": sum(stem_fused.launches.values()) - stem0,
+                "suppress_launches": greedy_suppress.launches - nms0})
+            return out
+
+        def timed_save(io, name, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(io, name, state)
+            probes.saves.append({"name": name, "ms": (time.perf_counter()
+                                                      - t0) * 1e3})
+
+        run.make_loaders = timed_loaders
+        Trainer.validate = timed_validate
+        CheckpointIO.save = timed_save
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, value in self._saved:
+            setattr(owner, name, value)
+
+
+def fit_phase(dev, card, step_img_s):
+    """Phase 9: the training run through its entry point,
+    ``podtpu_torch.train.run.train``, on ``configs/yolov3_voc.yaml``
+    (416 px, bf16, B=64, 8 workers) fed from JPEG files: 2 epochs, then a
+    resume from ``last`` to epoch 3. Returns each kernel's launches on
+    this path."""
+    import shutil
+    import tempfile
+
+    from podtpu_torch.config import get_configs
+    from podtpu_torch.data.synthetic import generate
+    from podtpu_torch.native import build as native_build
+    from podtpu_torch.ops.kernels.nms_kernel import greedy_suppress
+    from podtpu_torch.ops.kernels.stem_kernel import stem_fused
+    from podtpu_torch.train.run import make_loaders, train
+    from podtpu_torch.train.trainer import Trainer, restore_eval_weights
+
+    native_built_here = not os.path.exists(native_build._target())
+    t0 = time.perf_counter()
+    native_build.get_lib()
+    native_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="podtpu_fit_")
+    try:
+        t0 = time.perf_counter()
+        info = generate(os.path.join(tmp, "data"), n_train=128, n_val=72,
+                        size=480, num_classes=20, max_objects=8, seed=SEED)
+        data_s = time.perf_counter() - t0
+        cfg = get_configs(os.path.join(REPO, "configs", "yolov3_voc.yaml"))
+        cfg.update(train_list=info["train_list"], val_list=info["val_list"],
+                   names=info["names"], save_dir=os.path.join(tmp, "runs"),
+                   epochs=2, save_freq=1,
+                   trainer_options={"check_val_every_n_epoch": 1})
+        if (cfg["input_size"], cfg["compute_dtype"], cfg["batch_size"],
+                cfg["workers"]) != (416, "bfloat16", 64, 8):
+            raise AssertionError("configs/yolov3_voc.yaml is not 416 px "
+                                 "bf16, B=64, 8 workers")
+
+        # the loader alone: one epoch with no device work
+        train_loader, _ = make_loaders(cfg)
+        t0 = time.perf_counter()
+        n_img = sum(b["n_valid"] for b in train_loader)
+        loader_img_s = n_img / (time.perf_counter() - t0)
+
+        def zero():
+            for k in stem_fused.launches:
+                stem_fused.launches[k] = 0
+            greedy_suppress.launches = 0
+
+        def counts():
+            return {**{f"stem_{k}": v for k, v in stem_fused.launches.items()},
+                    "greedy_suppress": greedy_suppress.launches}
+
+        runs = {}
+        with _FitProbes() as probes:
+            torch.cuda.synchronize()
+            zero()
+            t0 = time.perf_counter()
+            first = train(cfg, device="cuda")
+            torch.cuda.synchronize()
+            runs["fit"] = {"seconds": time.perf_counter() - t0,
+                           "launches": counts()}
+            ckpt_dir = os.path.join(first.run_dir, "checkpoints")
+            found = sorted(os.listdir(ckpt_dir))
+            zero()
+            t0 = time.perf_counter()
+            resumed = train(cfg, resume=os.path.join(ckpt_dir, "last"),
+                            epochs=3, device="cuda")
+            torch.cuda.synchronize()
+            runs["resume"] = {"seconds": time.perf_counter() - t0,
+                              "launches": counts()}
+            n_fit_validations = len(probes.validations)
+
+            # no CPU tensor inside one train step and one eval step
+            batch = resumed._put({k: v for k, v in next(iter(
+                make_loaders(cfg)[0])).items() if k != "n_valid"})
+            spies = {}
+            for name, fn in (("train_step", resumed.train_step),
+                             ("eval_step", resumed.eval_step)):
+                spies[name] = _CpuTensorSpy()
+                with spies[name]:
+                    fn(resumed.state, batch)
+            torch.cuda.synchronize()
+
+            # best, restored into a fresh eval-only Trainer
+            rows = first.history
+            best_row = min(rows, key=lambda r: r["val_loss"])
+            fresh = Trainer(cfg, device="cuda", eval_only=True)
+            restore_eval_weights(os.path.join(ckpt_dir, "best"), fresh.state,
+                                 cfg)
+            again = fresh.validate(make_loaders(cfg)[1])
+
+        history = first.history + resumed.history
+        steps_per_epoch = -(-128 // 64)
+        checks = {
+            "rows": [r["epoch"] for r in first.history] == [0, 1]
+            and [r["epoch"] for r in resumed.history] == [2],
+            "finite": all(np.isfinite([r["train_loss"], r["val_loss"]]).all()
+                          for r in history),
+            "val_mAP_in_0_1": all(0.0 <= r["val_mAP"] <= 1.0 for r in history),
+            "stem_once_per_step": all(
+                runs[k]["launches"][f"stem_{n}"] == e * steps_per_epoch
+                for k, e in (("fit", 2), ("resume", 1)) for n in STEM_REPLACES),
+            "suppress_once_per_val_batch": all(
+                v["suppress_launches"] == v["batches"] == 2
+                for v in probes.validations)
+            and runs["fit"]["launches"]["greedy_suppress"] == 4
+            and runs["resume"]["launches"]["greedy_suppress"] == 2,
+            "no_stem_in_validate": all(v["stem_launches"] == 0
+                                       for v in probes.validations),
+            "no_cpu_tensors": not any(s.cpu_ops for s in spies.values()),
+            "checkpoints": {"last", "best", "epoch_0000",
+                            "epoch_0001"} <= set(found),
+            "best_restore": abs(again["val_loss"] - best_row["val_loss"])
+            <= 1e-5 * abs(best_row["val_loss"])
+            and abs(again["val_mAP"] - best_row["val_mAP"]) <= 1e-6,
+        }
+        fit_val = probes.validations[:n_fit_validations]
+        eval_ms = [m for v in fit_val for m in v["eval_step_ms"]]
+        fit_img_s = [r["images_per_sec"] for r in history]
+        emit({"phase": "fit", "config": "configs/yolov3_voc.yaml",
+              "data": {"n_train": 128, "n_val": 72, "size": 480,
+                       "num_classes": 20, "max_objects": 8,
+                       "generate_s": data_s},
+              "checks": checks, "history": history,
+              "best": {"epoch": best_row["epoch"],
+                       "fit_val_loss": best_row["val_loss"],
+                       "restored_val_loss": again["val_loss"],
+                       "fit_val_mAP": best_row["val_mAP"],
+                       "restored_val_mAP": again["val_mAP"]},
+              "runs": runs, "checkpoints": found,
+              "cpu_ops": {k: sorted(set(s.cpu_ops)) for k, s in spies.items()},
+              "loader_alone_img_per_s": loader_img_s,
+              "fit_img_per_s": fit_img_s,
+              "epochs": probes.epochs,
+              "validate": fit_val,
+              "validate_s": [v["seconds"] for v in fit_val],
+              "eval_step_ms_per_batch": float(np.mean(eval_ms)),
+              "map_host_ms": [v["map_host_ms"] for v in fit_val],
+              "checkpoint_save_ms": probes.saves,
+              "native_matcher_build_and_load_s": native_s,
+              "native_matcher_built_here": native_built_here,
+              "train_step_on_card_img_per_s": step_img_s,
+              "fit_over_on_card_step": [v / step_img_s for v in fit_img_s],
+              "card": card})
+        if not all(checks.values()):
+            raise AssertionError(f"the fit phase failed its checks: "
+                                 f"{ {k: v for k, v in checks.items() if not v} }")
+        return {k: runs["fit"]["launches"][k] + runs["resume"]["launches"][k]
+                for k in runs["fit"]["launches"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -1122,10 +1406,15 @@ def main() -> int:
 
     # 6.-8. the training slice (TF32 stays off from phase 5)
     stem_entries = stem_phase(dev, card)
-    train_launches = train_phase(cfg, flat, dev, card)
+    train_launches, step_img_s = train_phase(cfg, flat, dev, card)
     for e in stem_entries:
         e["launches"] = train_launches[e["name"][len("stem_"):]]
     train_reference_phase(cfg, dev)
+
+    # 9. the training run from files through its entry point
+    fit_launches = fit_phase(dev, card, step_img_s)
+    for e in stem_entries:
+        e["launches_fit"] = fit_launches[e["name"]]
 
     emit({"kernels": [{
         "name": "greedy_suppress",
@@ -1133,6 +1422,7 @@ def main() -> int:
         "source": "podtpu_torch/csrc/nms_suppress.cu",
         "replaces": REPLACES,
         "launches": launches,
+        "launches_fit": fit_launches["greedy_suppress"],
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "device_ms": dev_ms,

@@ -141,3 +141,8 @@ def get_configs(file: str, validate: bool = True) -> dict:
             raise ValueError(f"{len(warnings)} unknown config key(s) in "
                              f"{file} (PODTPU_STRICT_CONFIG set)")
     return cfg
+
+
+def make_model_name(cfg: dict) -> str:
+    """'<model>_<dataset>' run name (reference: utils/utility.py:13-14)."""
+    return cfg["model"] + "_" + cfg["dataset_name"]

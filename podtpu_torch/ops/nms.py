@@ -83,7 +83,7 @@ def batched_class_aware_nms(
     if agnostic or merge or classes is not None:
         raise NotImplementedError(
             "nms_options agnostic / merge / classes are not ported yet "
-            "(ROADMAP.md queue 1, eval slice)")
+            "(ROADMAP.md queue 1, item 4: the rest of NMS)")
     cand, cand_valid, offset_boxes = _select_candidates(
         boxes, conf_threshold, top_k)
     keep = greedy_suppress(offset_boxes.contiguous(), cand_valid,

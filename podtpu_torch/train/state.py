@@ -49,3 +49,7 @@ def create_train_state(cfg: dict, device: str | torch.device | None = None,
     if weights is not None:
         load_flat_weights(model, weights)
     return TrainState(model, build_optimizer(cfg, model), build_schedule(cfg))
+
+
+def param_count(model: torch.nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

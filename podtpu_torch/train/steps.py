@@ -6,8 +6,8 @@
 * ``make_serve_fn``: image batch -> detections. The whole postprocess stays
   on the batch's device: decode + padded NMS (whose suppression is the
   CUDA kernel on the card); only the [B, max_det, 6] survivors leave it.
-
-The eval step belongs to the eval slice.
+* ``make_eval_step``: eval-mode forward + loss + the serving postprocess;
+  the host mAP (``metrics/map.py``) takes the survivors after ``.cpu()``.
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ def _decoder_and_nms(cfg: dict) -> tuple[Callable, Callable]:
     if unported:
         raise NotImplementedError(
             f"nms_options {unported} are not ported yet (ROADMAP.md queue 1, "
-            "eval slice); the port picks its suppression by device")
+            "item 4: the rest of NMS); the port picks its suppression by device")
     decoder = make_decoder(cfg)
     conf_t = float(cfg.get("conf_threshold", 0.25))
     iou_t = float(cfg.get("nms_iou_threshold", 0.45))
@@ -84,20 +84,61 @@ def make_postprocess(cfg: dict) -> Callable:
     return postprocess
 
 
-def make_serve_fn(cfg: dict, apply_fn: Callable) -> Callable:
+def make_serve_fn(cfg: dict, apply_fn: Callable,
+                  with_preds: bool = False) -> Callable:
     """The deployment graph: image batch -> (dets, valid).
 
-    ``apply_fn(x) -> raw preds`` is the frozen-weights forward."""
+    ``apply_fn(x) -> raw preds`` is the frozen-weights forward.
+    ``with_preds=True`` also returns the raw preds first (the eval step
+    computes its loss on them)."""
     if cfg.get("tta"):
         raise NotImplementedError("tta is not ported yet (ROADMAP.md queue "
-                                  "1, eval slice)")
+                                  "1, item 4: the rest of NMS, and TTA)")
     decoder, nms = _decoder_and_nms(cfg)
 
     @torch.inference_mode()
     def serve(x):
-        return nms(decoder(apply_fn(x)))
+        preds = apply_fn(x)
+        dets, valid = nms(decoder(preds))
+        if with_preds:
+            return preds, dets, valid
+        return dets, valid
 
     return serve
+
+
+def make_eval_step(cfg: dict, extra_variables: dict | None = None
+                   ) -> Callable:
+    """``(state, batch) -> (loss, dets [B, max_det, 6], valid [B, max_det])``
+    on the batch's device: the model in eval mode (BN running statistics;
+    the train-mode fused stem is never reached) under
+    ``torch.inference_mode()``, the serving postprocess, and the loss on
+    the same raw preds. Detections are input-pixel cxcywh + conf + class,
+    score-sorted. The state is left as it was, its train/eval mode
+    included."""
+    if extra_variables:
+        raise NotImplementedError("extra_variables (int8 quantized eval) is "
+                                  "not ported yet (ROADMAP.md queue 1, item "
+                                  "10: export)")
+    loss_fn = build_loss(cfg)
+    current: list = [None]  # the model of the call in progress
+    serve = make_serve_fn(cfg, lambda x: current[0](x), with_preds=True)
+
+    def eval_step(state, batch):
+        model = state.model
+        was_training = model.training
+        model.eval()
+        current[0] = model
+        try:
+            preds, dets, valid = serve(_as_input(batch["img"]))
+            with torch.inference_mode():
+                loss = loss_fn(preds, batch["annot"])
+        finally:
+            current[0] = None
+            model.train(was_training)
+        return loss, dets, valid
+
+    return eval_step
 
 
 def make_train_step(cfg: dict) -> Callable:

@@ -1,0 +1,419 @@
+"""Training orchestration (``podtpu/train/trainer.py``), the functional
+analog of the reference's Lightning stack (pl.Trainer + callbacks,
+train_yolov3.py:50-74):
+
+* the train step per batch (loss logged as ``train_loss``), losses kept on
+  the device and reduced once an epoch;
+* validation every ``check_val_every_n_epoch`` epochs -> ``val_loss`` +
+  ``val_mAP`` (module/yolov3_detector.py:33-47);
+* checkpoints (``torch.save`` of the model's and the optimizer's
+  ``state_dict`` and the step, one directory each): ``last`` every epoch,
+  ``best`` on min val_loss, periodic every ``save_freq``;
+* early stopping on val_loss with patience counted in validation rounds
+  (EarlyStopping(patience=30), train_yolov3.py:57-61);
+* TensorBoard scalars incl. the learning rate under
+  ``<save_dir>/<model>_<dataset>/version_N/`` (utils/utility.py:13-14).
+
+One process, one device: no mesh (ROADMAP.md queue 1, item 9). Options the
+port does not run yet raise :class:`NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import sys
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from podtpu_torch import resolve_device
+from podtpu_torch.config import make_model_name
+from podtpu_torch.metrics import MeanAveragePrecision
+from podtpu_torch.train.state import TrainState, create_train_state, param_count
+from podtpu_torch.train.steps import make_eval_step, make_train_step
+
+_STATE_FILE = "state.pt"
+
+
+def make_run_dir(cfg: dict) -> str:
+    base = os.path.join(cfg.get("save_dir", "./saved"), make_model_name(cfg))
+    os.makedirs(base, exist_ok=True)
+    n = 0
+    while os.path.exists(os.path.join(base, f"version_{n}")):
+        n += 1
+    run = os.path.join(base, f"version_{n}")
+    os.makedirs(os.path.join(run, "checkpoints"), exist_ok=True)
+    return run
+
+
+class CheckpointIO:
+    """Save/restore of the train state: ``{"model": state_dict,
+    "optimizer": state_dict, "step"}`` by ``torch.save`` into one directory
+    per checkpoint.
+
+    A checkpoint directory is written whole under a temporary name and
+    renamed into place, so a directory under a checkpoint's name is always
+    complete. Overwrites of the named targets ("last"/"best") are
+    crash-safe: the new checkpoint lands in ``<name>.staging`` and is
+    rename-swapped over the old one, so a kill at any point leaves a
+    complete checkpoint under ``name``, ``name.staging`` or ``name.old``
+    (``restore`` resolves the leftovers, preferring the newest).
+    """
+
+    def __init__(self, ckpt_dir: str, async_save: bool = False):
+        if async_save:
+            raise NotImplementedError("async_checkpoint is not ported yet "
+                                      "(ROADMAP.md queue 1, item 3: the "
+                                      "trainer)")
+        self._ckpt_dir = os.path.abspath(ckpt_dir)
+        os.makedirs(self._ckpt_dir, exist_ok=True)
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self._ckpt_dir, name)
+
+    def _finalize(self, name: str):
+        """Swap a complete ``<name>.staging`` into place (rename-based, so
+        a crash at any point leaves a complete checkpoint under ``name``,
+        ``name.staging``, or ``name.old``; ``_resolve`` finds it)."""
+        final = self._path(name)
+        staging = final + ".staging"
+        if not os.path.isdir(staging):
+            return
+        old = final + ".old"
+        shutil.rmtree(old, ignore_errors=True)
+        if os.path.isdir(final):
+            os.rename(final, old)
+        os.rename(staging, final)
+        shutil.rmtree(old, ignore_errors=True)
+
+    @staticmethod
+    def _resolve(path: str) -> str:
+        """Resolve a named-target path against crash leftovers: a complete
+        ``.staging`` is newer than the main dir; ``.old`` only exists if a
+        swap died between its two renames (main dir absent)."""
+        for candidate in (path + ".staging", path, path + ".old"):
+            if os.path.isdir(candidate):
+                return candidate
+        return path
+
+    @staticmethod
+    def _write(target: str, payload: dict):
+        """Write ``payload`` as the directory ``target``: into a temporary
+        sibling first, renamed over ``target`` once complete."""
+        tmp = f"{target}.tmp-{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(payload, os.path.join(tmp, _STATE_FILE))
+        shutil.rmtree(target, ignore_errors=True)
+        os.rename(tmp, target)
+
+    def save(self, name: str, state: TrainState):
+        payload = {
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step),
+        }
+        if name in ("last", "best"):
+            # a leftover staging dir (a save that died before its swap) is
+            # complete: swap it in, then stage the new save over it
+            self._finalize(name)
+            self._write(self._path(name) + ".staging", payload)
+            self._finalize(name)
+        else:
+            self._write(self._path(name), payload)
+
+    def prune_periodic(self, keep: int):
+        """Keep only the newest ``keep`` periodic ``epoch_<n>`` checkpoints
+        (cfg ``keep_checkpoints``; ``last``/``best`` are never pruned). Only
+        complete directories count (temporary ``*.tmp-*`` ones do not
+        match). Newness is the parsed epoch number, not the name string
+        (lexicographic order inverts past epoch 9999)."""
+        import re
+
+        if keep <= 0:
+            return
+        committed = []
+        for d in os.listdir(self._ckpt_dir):
+            m = re.fullmatch(r"epoch_(\d+)", d)
+            if m and os.path.isdir(os.path.join(self._ckpt_dir, d)):
+                committed.append((int(m.group(1)), d))
+        for _, d in sorted(committed)[:-keep]:
+            shutil.rmtree(os.path.join(self._ckpt_dir, d),
+                          ignore_errors=True)
+
+    def restore(self, path: str, state: TrainState) -> TrainState:
+        """Restore parameters, BN statistics, the optimizer's state (momentum
+        buffers onto the parameters' device) and the step into ``state``."""
+        payload = _load_payload(path, state)
+        state.model.load_state_dict(payload["model"])
+        state.optimizer.load_state_dict(payload["optimizer"])
+        state.step = int(payload["step"])
+        return state
+
+
+def _load_payload(path: str, state: TrainState) -> dict:
+    resolved = CheckpointIO._resolve(os.path.abspath(path))
+    device = next(state.model.parameters()).device
+    return torch.load(os.path.join(resolved, _STATE_FILE),
+                      map_location=device, weights_only=True)
+
+
+def make_preempt_handler(preempt):
+    """SIGTERM handler for preemption-safe training (``save_on_signal``).
+
+    First SIGTERM only sets the flag: the step loop saves a durable
+    ``last`` checkpoint at the next step boundary and returns cleanly. A
+    SECOND SIGTERM escalates to the default action (immediate exit), so
+    schedulers (or plain ``timeout``) can still kill the process with a
+    repeat signal.
+    """
+    import signal
+
+    def _on_sigterm(signum, frame):
+        if preempt.is_set():
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            signal.raise_signal(signal.SIGTERM)
+        preempt.set()
+
+    return _on_sigterm
+
+
+def restore_weights(path: str, state: TrainState,
+                    use_ema: bool = False) -> TrainState:
+    """Weights-only restore (parameters + BN statistics) into ``state``, for
+    eval/inference; the optimizer and the step stay as they were."""
+    if use_ema:
+        raise NotImplementedError("use_ema (EMA weights) is not ported yet "
+                                  "(ROADMAP.md queue 1, item 6: train-step "
+                                  "options)")
+    state.model.load_state_dict(_load_payload(path, state)["model"])
+    return state
+
+
+def restore_eval_weights(path: str, state: TrainState, cfg: dict,
+                         use_ema: bool | None = None) -> TrainState:
+    """CLI-facing restore: the weights evaluation should see. Without EMA
+    (not ported) these are the raw weights."""
+    return restore_weights(path, state, use_ema=bool(use_ema))
+
+
+# cfg options of podtpu's Trainer that the port does not run yet
+_UNPORTED = {
+    "swa": "item 3: the trainer (SWA needs make_stats_step and "
+           "recalibrate_bn)",
+    "log_images": "item 3: the trainer",
+    "ema": "item 6: train-step options",
+    "async_checkpoint": "item 3: the trainer",
+}
+
+
+class Trainer:
+    def __init__(self, cfg: dict, run_dir: str | None = None,
+                 log: Callable[[str], None] = print,
+                 device: str | torch.device | None = None,
+                 eval_only: bool = False):
+        unported = [k for k in _UNPORTED if cfg.get(k)]
+        if int(cfg.get("steps_per_dispatch") or 1) > 1:
+            raise NotImplementedError("steps_per_dispatch > 1 is not ported "
+                                      "yet (ROADMAP.md queue 1, item 6: "
+                                      "train-step options)")
+        if unported:
+            raise NotImplementedError(
+                f"{unported} not ported yet (ROADMAP.md queue 1, "
+                + "; ".join(_UNPORTED[k] for k in unported) + ")")
+        self.cfg = cfg
+        self.log = log
+        self.device = resolve_device(device)
+        # seeded init without touching the caller's global RNG
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(int(cfg.get("seed", 0)))
+            self.state = create_train_state(cfg, self.device)
+        self.train_step = make_train_step(cfg)
+        self.eval_step = make_eval_step(cfg)
+        self.map_metric = MeanAveragePrecision(
+            cfg["num_classes"], cfg["input_size"]
+        )
+        # eval-only consumers don't create run directories or checkpoints
+        self.run_dir = None if eval_only else (run_dir or make_run_dir(cfg))
+        self.ckpt = (None if eval_only else
+                     CheckpointIO(os.path.join(self.run_dir, "checkpoints")))
+        self._writer = None
+        self.history: list[dict] = []
+        self.log(
+            f"model={cfg['model']} params={param_count(self.state.model):,}"
+            + (f" run_dir={self.run_dir}" if self.run_dir else "")
+        )
+
+    @property
+    def writer(self):
+        if self._writer is None:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._writer = SummaryWriter(self.run_dir)
+            except Exception:  # tensorboard unavailable -> no-op writer
+                class _Null:
+                    def add_scalar(self, *a, **k):
+                        pass
+
+                    def flush(self):
+                        pass
+
+                self._writer = _Null()
+        return self._writer
+
+    def _put(self, batch: dict) -> dict:
+        """The host batch's arrays as tensors on ``self.device``."""
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in batch.items()}
+
+    def fit(self, train_loader, val_loader, epochs: int | None = None,
+            start_epoch: int = 0):
+        cfg = self.cfg
+        epochs = epochs if epochs is not None else cfg["epochs"]
+        val_every = int(cfg.get("trainer_options", {}).get(
+            "check_val_every_n_epoch", 1))
+        patience = int(cfg.get("early_stopping_patience", 30))
+        save_freq = int(cfg.get("save_freq", 5))
+
+        best_val = float("inf")
+        bad_rounds = 0
+        t_start = time.time()
+
+        # Preemption-safe training (cfg ``save_on_signal``, default on):
+        # SIGTERM requests a graceful stop. The handler only sets a flag;
+        # the step loop notices it at the next step boundary, saves a
+        # durable ``last`` checkpoint, and returns normally, so
+        # ``--resume <run>/checkpoints/last`` continues the run.
+        import signal
+        import threading
+
+        preempt = threading.Event()
+        prev_handler, installed = None, False
+        if bool(cfg.get("save_on_signal", True)):
+            try:
+                prev_handler = signal.signal(
+                    signal.SIGTERM, make_preempt_handler(preempt))
+                installed = True
+            except ValueError:  # not the main thread - no handler, no flag
+                pass
+        # in-epoch progress line (opt-out: progress: false); only when
+        # stdout is a tty so logs/CI stay clean
+        progress = bool(cfg.get("progress", True)) and sys.stdout.isatty()
+        steps_per_epoch = len(train_loader)
+
+        try:
+            for epoch in range(start_epoch, epochs):
+                train_loader.set_epoch(epoch)
+                losses = []  # device scalars: one sync an epoch
+                t_epoch = time.time()
+                n_images = 0
+                for i, batch in enumerate(train_loader):
+                    n_images += batch.pop("n_valid", batch["img"].shape[0])
+                    self.state, metrics = self.train_step(
+                        self.state, self._put(batch))
+                    losses.append(metrics["loss"])
+                    if preempt.is_set():
+                        break
+                    if progress and (i % 10 == 9 or i + 1 == steps_per_epoch):
+                        # float() syncs on the newest loss (tty only)
+                        rate = n_images / max(time.time() - t_epoch, 1e-9)
+                        sys.stdout.write(
+                            f"\repoch {epoch}: {i + 1}/{steps_per_epoch} "
+                            f"loss={float(losses[-1]):.4g} {rate:.1f} img/s   ")
+                        sys.stdout.flush()
+                if progress:
+                    sys.stdout.write("\r\033[K")
+                if preempt.is_set():
+                    self.ckpt.save("last", self.state)
+                    self.log(f"SIGTERM: saved preemption checkpoint 'last' at "
+                             f"step {self.state.step}; stopping "
+                             f"(resume with --resume .../checkpoints/last)")
+                    break
+                if not losses:
+                    raise RuntimeError("empty train loader")
+                train_loss = float(torch.stack(losses).mean())
+                step = self.state.step
+                lr = float(self.state.schedule(step))
+                dt = time.time() - t_epoch
+                ips = n_images / dt if dt > 0 else 0.0
+                self.writer.add_scalar("train_loss", train_loss, step)
+                self.writer.add_scalar("lr", lr, step)
+                self.writer.add_scalar("images_per_sec", ips, step)
+                row = {"epoch": epoch, "step": step, "train_loss": train_loss,
+                       "lr": lr, "images_per_sec": ips}
+
+                if (epoch + 1) % val_every == 0:
+                    val = self.validate(val_loader)
+                    row.update(val)
+                    self.writer.add_scalar("val_loss", val["val_loss"], step)
+                    self.writer.add_scalar("val_mAP", val["val_mAP"], step)
+                    # per-class AP scalars; result_per_class rows are
+                    # [AP, TP, FP, FN]
+                    for name, row_c in zip(self._class_names(),
+                                           self.map_metric.result_per_class()):
+                        self.writer.add_scalar(f"val_AP/{name}",
+                                               float(row_c[0]), step)
+                    if val["val_loss"] < best_val:
+                        best_val = val["val_loss"]
+                        bad_rounds = 0
+                        self.ckpt.save("best", self.state)
+                    else:
+                        bad_rounds += 1
+
+                self.ckpt.save("last", self.state)
+                if (epoch + 1) % save_freq == 0:
+                    self.ckpt.save(f"epoch_{epoch:04d}", self.state)
+                    self.ckpt.prune_periodic(int(cfg.get("keep_checkpoints", 0)))
+
+                self.history.append(row)
+                self.log(
+                    f"epoch {epoch}: " + " ".join(
+                        f"{k}={v:.5g}" for k, v in row.items() if k != "epoch"
+                    )
+                )
+                if bad_rounds >= patience:
+                    self.log(f"early stopping after {bad_rounds} stale rounds")
+                    break
+        finally:
+            if installed:
+                signal.signal(
+                    signal.SIGTERM,
+                    prev_handler if prev_handler is not None
+                    else signal.SIG_DFL)
+        self.writer.flush()
+        self.log(f"fit done in {time.time() - t_start:.1f}s")
+        return self.history
+
+    def _class_names(self) -> list[str]:
+        names_path = self.cfg.get("names")
+        n = self.cfg["num_classes"]
+        try:
+            with open(names_path) as f:
+                names = [l.strip() for l in f if l.strip()]
+            if len(names) >= n:
+                return names[:n]
+        except (TypeError, OSError):
+            pass
+        return [f"class{i}" for i in range(n)]
+
+    def validate(self, val_loader) -> dict:
+        """val_loss + val_mAP over the full validation set, on the training
+        state itself (EMA weights are not ported)."""
+        self.map_metric.reset_states()
+        losses = []
+        val_loader.set_epoch(0)
+        for batch in val_loader:
+            n_valid = batch.pop("n_valid", batch["img"].shape[0])
+            loss, dets, valid = self.eval_step(self.state, self._put(batch))
+            losses.append(float(loss))
+            # a padded final batch repeats its last sample: slice them off
+            self.map_metric.update_state(batch["annot"][:n_valid],
+                                         dets[:n_valid].cpu().numpy(),
+                                         valid[:n_valid].cpu().numpy())
+        val_loss = float(np.mean(losses)) if losses else float("nan")
+        val_map = self.map_metric.result()
+        return {"val_loss": val_loss, "val_mAP": val_map}
