@@ -44,13 +44,20 @@ class BatchNormMixed(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        # fn(mean, unbiased var) taking a train-mode batch's statistics in
+        # place of the running update (``train/steps.py::make_stats_step``)
+        self.stats_sink = None
 
     @torch.no_grad()
     def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor,
                              n: int):
         """Fold one batch's statistics (over ``n`` values per channel) into
-        the running ones."""
+        the running ones, or hand them to ``stats_sink`` when one is set
+        (the buffers are then left alone)."""
         bessel = n / max(n - 1, 1)
+        if self.stats_sink is not None:
+            self.stats_sink(mean, bessel * var)
+            return
         m = self.momentum
         self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
         self.running_var.copy_(m * self.running_var

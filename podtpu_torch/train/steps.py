@@ -8,6 +8,9 @@
   CUDA kernel on the card); only the [B, max_det, 6] survivors leave it.
 * ``make_eval_step``: eval-mode forward + loss + the serving postprocess;
   the host mAP (``metrics/map.py``) takes the survivors after ``.cpu()``.
+* ``make_stats_step``: a train-mode forward without a backward that returns
+  the batch's BN statistics (the SWA recalibration pass); on the card the
+  fused stem launches its two forward kernels and nothing else.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Callable
 import torch
 
 from podtpu_torch.losses import build_loss
+from podtpu_torch.models.layers import BatchNormMixed
 from podtpu_torch.ops.decode import decode_yolov3, layer_anchors
 from podtpu_torch.ops.nms import batched_class_aware_nms
 
@@ -139,6 +143,54 @@ def make_eval_step(cfg: dict, extra_variables: dict | None = None
         return loss, dets, valid
 
     return eval_step
+
+
+def make_stats_step(cfg: dict) -> Callable:
+    """Forward-only BN-statistics step for SWA recalibration:
+    ``(state, batch) -> {state_dict key: tensor}``, each BatchNorm's
+    ``running_mean`` / ``running_var`` key mapped to THIS batch's mean and
+    unbiased (Bessel) variance, float32 on the model's device.
+
+    The model runs in train mode under ``torch.no_grad()``; each BN layer
+    hands its batch statistics to a sink in place of its running update.
+    ``podtpu`` recovers the same numbers by inverting the EWMA,
+    ``(new - m * old) / (1 - m)``; taking them directly skips that
+    tenfold amplification of float32 rounding. The state is left as it
+    was: parameters, buffers and each module's train/eval flag."""
+    if cfg.get("device_geom"):
+        raise NotImplementedError("device_geom is not ported yet (ROADMAP.md "
+                                  "queue 1, item 8: device augmentation)")
+
+    def stats_step(state, batch):
+        model = state.model
+        modes = [(m, m.training) for m in model.modules()]
+        raw: dict = {}
+        bns = [(name, m) for name, m in model.named_modules()
+               if isinstance(m, BatchNormMixed)]
+
+        def sink_for(name):
+            def sink(mean, var):
+                raw[f"{name}.running_mean"] = mean
+                raw[f"{name}.running_var"] = var
+            return sink
+
+        try:
+            for name, m in bns:
+                m.stats_sink = sink_for(name)
+            model.train()
+            with torch.no_grad():
+                model(_as_input(batch["img"]))
+        finally:
+            for _, m in bns:
+                m.stats_sink = None
+            for m, training in modes:
+                m.training = training
+        if len(raw) != 2 * len(bns):
+            raise RuntimeError(f"{len(bns) - len(raw) // 2} BatchNorm layers "
+                               "gave no batch statistics")
+        return raw
+
+    return stats_step
 
 
 def make_train_step(cfg: dict) -> Callable:

@@ -11,8 +11,11 @@ train_yolov3.py:50-74):
   ``best`` on min val_loss, periodic every ``save_freq``;
 * early stopping on val_loss with patience counted in validation rounds
   (EarlyStopping(patience=30), train_yolov3.py:57-61);
+* SWA (cfg ``swa``): parameters averaged over the epochs from
+  ``start_epoch`` on, BN recalibrated over train batches, saved as ``swa``;
 * TensorBoard scalars incl. the learning rate under
-  ``<save_dir>/<model>_<dataset>/version_N/`` (utils/utility.py:13-14).
+  ``<save_dir>/<model>_<dataset>/version_N/`` (utils/utility.py:13-14),
+  and with cfg ``log_images: N`` the first val batch's detections drawn.
 
 One process, one device: no mesh (ROADMAP.md queue 1, item 9). Options the
 port does not run yet raise :class:`NotImplementedError`.
@@ -20,6 +23,7 @@ port does not run yet raise :class:`NotImplementedError`.
 
 from __future__ import annotations
 
+import copy
 import os
 import shutil
 import sys
@@ -33,9 +37,15 @@ from podtpu_torch import resolve_device
 from podtpu_torch.config import make_model_name
 from podtpu_torch.metrics import MeanAveragePrecision
 from podtpu_torch.train.state import TrainState, create_train_state, param_count
-from podtpu_torch.train.steps import make_eval_step, make_train_step
+from podtpu_torch.train.steps import (
+    make_eval_step,
+    make_stats_step,
+    make_train_step,
+)
 
 _STATE_FILE = "state.pt"
+# checkpoints overwritten in place: staged, then rename-swapped
+_STAGED = ("last", "best", "swa")
 
 
 def make_run_dir(cfg: dict) -> str:
@@ -56,7 +66,7 @@ class CheckpointIO:
 
     A checkpoint directory is written whole under a temporary name and
     renamed into place, so a directory under a checkpoint's name is always
-    complete. Overwrites of the named targets ("last"/"best") are
+    complete. Overwrites of the named targets ("last"/"best"/"swa") are
     crash-safe: the new checkpoint lands in ``<name>.staging`` and is
     rename-swapped over the old one, so a kill at any point leaves a
     complete checkpoint under ``name``, ``name.staging`` or ``name.old``
@@ -116,7 +126,7 @@ class CheckpointIO:
             "optimizer": state.optimizer.state_dict(),
             "step": int(state.step),
         }
-        if name in ("last", "best"):
+        if name in _STAGED:
             # a leftover staging dir (a save that died before its swap) is
             # complete: swap it in, then stage the new save over it
             self._finalize(name)
@@ -127,10 +137,10 @@ class CheckpointIO:
 
     def prune_periodic(self, keep: int):
         """Keep only the newest ``keep`` periodic ``epoch_<n>`` checkpoints
-        (cfg ``keep_checkpoints``; ``last``/``best`` are never pruned). Only
-        complete directories count (temporary ``*.tmp-*`` ones do not
-        match). Newness is the parsed epoch number, not the name string
-        (lexicographic order inverts past epoch 9999)."""
+        (cfg ``keep_checkpoints``; ``last``/``best``/``swa`` are never
+        pruned). Only complete directories count (temporary ``*.tmp-*``
+        ones do not match). Newness is the parsed epoch number, not the
+        name string (lexicographic order inverts past epoch 9999)."""
         import re
 
         if keep <= 0:
@@ -202,9 +212,6 @@ def restore_eval_weights(path: str, state: TrainState, cfg: dict,
 
 # cfg options of podtpu's Trainer that the port does not run yet
 _UNPORTED = {
-    "swa": "item 3: the trainer (SWA needs make_stats_step and "
-           "recalibrate_bn)",
-    "log_images": "item 3: the trainer",
     "ema": "item 6: train-step options",
     "async_checkpoint": "item 3: the trainer",
 }
@@ -259,6 +266,9 @@ class Trainer:
                     def add_scalar(self, *a, **k):
                         pass
 
+                    def add_image(self, *a, **k):
+                        pass
+
                     def flush(self):
                         pass
 
@@ -278,6 +288,14 @@ class Trainer:
             "check_val_every_n_epoch", 1))
         patience = int(cfg.get("early_stopping_patience", 30))
         save_freq = int(cfg.get("save_freq", 5))
+
+        # SWA (the reference's commented experimental callback,
+        # configs/yolov3_voc.yaml:73-75): average the parameters over the
+        # epochs from ``swa: {start_epoch: N}``; saved as checkpoint "swa"
+        swa_cfg = cfg.get("swa") or {}
+        swa_start = int(swa_cfg.get("start_epoch", -1)) if swa_cfg else -1
+        swa_params = None
+        swa_count = 0
 
         best_val = float("inf")
         bad_rounds = 0
@@ -349,6 +367,9 @@ class Trainer:
                 if (epoch + 1) % val_every == 0:
                     val = self.validate(val_loader)
                     row.update(val)
+                    n_img = int(cfg.get("log_images", 0))
+                    if n_img:
+                        self._log_val_images(val_loader, n_img, step)
                     self.writer.add_scalar("val_loss", val["val_loss"], step)
                     self.writer.add_scalar("val_mAP", val["val_mAP"], step)
                     # per-class AP scalars; result_per_class rows are
@@ -363,6 +384,10 @@ class Trainer:
                         self.ckpt.save("best", self.state)
                     else:
                         bad_rounds += 1
+
+                if swa_start >= 0 and epoch >= swa_start:
+                    swa_count += 1
+                    swa_params = self._swa_update(swa_params, swa_count)
 
                 self.ckpt.save("last", self.state)
                 if (epoch + 1) % save_freq == 0:
@@ -384,9 +409,93 @@ class Trainer:
                     signal.SIGTERM,
                     prev_handler if prev_handler is not None
                     else signal.SIG_DFL)
+        if swa_params is not None:
+            # the averaged weights in a copy of the model: ``self.state``
+            # stays the last trained weights. Averaging shifts every layer's
+            # activations, so BN is recalibrated with a forward-only sweep
+            # over the train loader (torch.optim.swa_utils.update_bn role)
+            swa_model = copy.deepcopy(self.state.model)
+            with torch.no_grad():
+                for name, p in swa_model.named_parameters():
+                    p.copy_(swa_params[name])
+            swa_state = TrainState(swa_model, self.state.optimizer,
+                                   self.state.schedule, self.state.step)
+            n_recal = int(swa_cfg.get("bn_recal_batches", 20))
+            swa_state = self.recalibrate_bn(swa_state, train_loader, n_recal)
+            self.ckpt.save("swa", swa_state)
+            self.log(f"saved SWA weights (averaged over {swa_count} epochs, "
+                     f"BN recalibrated over {n_recal} batches)")
         self.writer.flush()
         self.log(f"fit done in {time.time() - t_start:.1f}s")
         return self.history
+
+    def _swa_update(self, avg: dict | None, count: int) -> dict:
+        """The running mean of the parameters after ``count`` epochs:
+        float32 clones, never the live tensors (the optimizer updates
+        those in place)."""
+        params = dict(self.state.model.named_parameters())
+        with torch.no_grad():
+            if avg is None:
+                return {k: p.detach().float().clone()
+                        for k, p in params.items()}
+            w = 1.0 / count
+            for k, a in avg.items():
+                a.add_((params[k].detach().float() - a) * w)
+        return avg
+
+    def recalibrate_bn(self, state: TrainState, loader,
+                       num_batches: int = 20) -> TrainState:
+        """Replace ``state``'s BN running statistics with the cumulative
+        average of raw batch statistics over ``num_batches`` batches of
+        ``loader`` (the SWA ``update_bn`` pass: forward only, no gradient,
+        ``train/steps.py::make_stats_step``)."""
+        stats_step = make_stats_step(self.cfg)
+        loader.set_epoch(0)
+        acc = None
+        n = 0
+        for batch in loader:
+            if n >= num_batches:
+                break
+            batch.pop("n_valid", None)
+            raw = stats_step(state, self._put(batch))
+            n += 1
+            if acc is None:
+                acc = raw
+            else:
+                w = 1.0 / n
+                acc = {k: a + (raw[k] - a) * w for k, a in acc.items()}
+        if acc is None:
+            return state
+        buffers = dict(state.model.named_buffers())
+        with torch.no_grad():
+            for k, v in acc.items():
+                buffers[k].copy_(v)
+        return state
+
+    def _log_val_images(self, val_loader, n_img: int, step: int):
+        """Tagged-detection images to TensorBoard: GT red, predictions green
+        (the reference's inference window, inference_yolov3.py:86-90, as TB
+        panels). Opt-in via cfg ``log_images: N``."""
+        from podtpu_torch.utils.viz import annots_to_boxes, draw_boxes
+
+        names = self._class_names()
+        size = self.cfg["input_size"]
+        val_loader.set_epoch(0)
+        batch = next(iter(val_loader))
+        batch.pop("n_valid", None)
+        _, dets, valid = self.eval_step(self.state, self._put(batch))
+        dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+        imgs = np.asarray(batch["img"][:n_img])
+        if imgs.dtype != np.uint8:
+            imgs = (imgs * 255).astype(np.uint8)
+        for i in range(min(n_img, imgs.shape[0])):
+            img = np.ascontiguousarray(imgs[i])
+            img = draw_boxes(img, annots_to_boxes(batch["annot"][i], size),
+                             names, color=(255, 0, 0))
+            img = draw_boxes(img, dets[i][valid[i]], names,
+                             color=(0, 255, 0))
+            self.writer.add_image(f"val_detections/{i}", img, step,
+                                  dataformats="HWC")
 
     def _class_names(self) -> list[str]:
         names_path = self.cfg.get("names")

@@ -43,6 +43,7 @@ def _offset_boxes(rng, b, k):
     (2, 8192, False),                     # MAX_K: 128 words a row
     (4, 300, False), (4, 513, False),     # ragged last word
     (8, 512, True),                       # nothing valid: the scan ends at once
+    (1, 512, False), (1, 512, True),      # the per-image CLIs' batch
 ])
 def test_suppress_kernel_matches_reference(cuda, b, k, none_valid):
     boxes, valid = _offset_boxes(np.random.default_rng(k + b), b, k)
@@ -224,18 +225,23 @@ def test_kernels_reject_misaligned_tensors(cuda):
         sk.stem_emit(off, wt, *vecs[:2])
 
 
+def _yolo64_bf16() -> dict:
+    """YOLOv3 at 64 px in bf16 with the flagship recipe's optimizer."""
+    anchors = [[10, 13], [16, 30], [33, 23], [30, 61], [62, 45], [59, 119],
+               [116, 90], [156, 198], [373, 326]]
+    return dict(model="yolov3", num_classes=20, anchors=anchors,
+                input_size=64, compute_dtype="bfloat16", optimizer="sgd",
+                optimizer_options={"lr": 1e-3, "momentum": 0.9,
+                                   "nesterov": True, "weight_decay": 1e-2})
+
+
 @pytest.mark.cuda
 def test_train_step_launches_each_stem_kernel_once(cuda):
     from podtpu_torch.data.loader import pad_annotations
     from podtpu_torch.train.state import create_train_state
     from podtpu_torch.train.steps import make_train_step
 
-    anchors = [[10, 13], [16, 30], [33, 23], [30, 61], [62, 45], [59, 119],
-               [116, 90], [156, 198], [373, 326]]
-    cfg = dict(model="yolov3", num_classes=20, anchors=anchors,
-               input_size=64, compute_dtype="bfloat16", optimizer="sgd",
-               optimizer_options={"lr": 1e-3, "momentum": 0.9,
-                                  "nesterov": True, "weight_decay": 1e-2})
+    cfg = _yolo64_bf16()
     state = create_train_state(cfg, cuda)
     step = make_train_step(cfg)
     r = np.random.default_rng(0)
@@ -251,3 +257,30 @@ def test_train_step_launches_each_stem_kernel_once(cuda):
     assert torch.isfinite(m["loss"])
     assert {k: v - before[k] for k, v in sk.stem_fused.launches.items()} == {
         k: 2 for k in before}
+
+
+@pytest.mark.cuda
+def test_stats_step_launches_only_the_forward_kernels(cuda):
+    """SWA's BN-statistics step in bf16: the stem's two forward kernels once
+    each, its backward never, every BN layer's statistics finite, and the
+    state (buffers, parameters, modes) left bit for bit."""
+    from podtpu_torch.train.state import create_train_state
+    from podtpu_torch.train.steps import make_stats_step
+
+    cfg = _yolo64_bf16()
+    state = create_train_state(cfg, cuda)
+    state.model.eval()
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    img = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 64, 64, 3), dtype=np.uint8)).to(cuda)
+    launches = dict(sk.stem_fused.launches)
+    raw = make_stats_step(cfg)(state, {"img": img})
+    torch.cuda.synchronize()
+    assert {k: v - launches[k] for k, v in sk.stem_fused.launches.items()} == {
+        "stats": 1, "emit": 1, "bwd_sums": 0, "bwd_dw": 0}
+    assert set(raw) == {k for k in before if "running_" in k}
+    assert all(torch.isfinite(v).all() and v.device.type == "cuda"
+               for v in raw.values())
+    assert not any(m.training for m in state.model.modules())
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, before[k]), k

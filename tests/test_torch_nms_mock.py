@@ -109,6 +109,11 @@ def _case(name):
         valid = torch.ones((3, 130), dtype=torch.bool)
         valid[1] = False
         return boxes, valid
+    if name == "one_image_K512":  # the per-image CLIs' batch
+        return _offset_boxes(rng, 1, 512), _ragged(rng, 1, 512, lo=256)
+    if name == "one_image_no_valid":  # a frame with no candidate
+        return (_offset_boxes(rng, 1, 512),
+                torch.zeros((1, 512), dtype=torch.bool))
     if name == "ragged_prefix":
         return _offset_boxes(rng, 3, 200), _ragged(rng, 3, 200)
     if name == "scattered_valid":
@@ -144,7 +149,8 @@ def _case(name):
 CASES = ["random_K1", "random_K63", "random_K64", "random_K65",
          "random_K200", "random_K512",
          "random_K1100",  # 18 words: a word-row takes two pieces in the scan
-         "no_valid_box", "ragged_prefix",
+         "no_valid_box", "one_image_K512", "one_image_no_valid",
+         "ragged_prefix",
          "scattered_valid", "class_offsets_data_stride",
          "chain_within_a_word", "chain_across_words", "dense_cluster"]
 
@@ -157,10 +163,13 @@ def test_mocked_keep_masks_equal_reference(lib, name):
     assert torch.equal(got, want)
     if name == "no_valid_box":
         assert not got[1].any() and got[0].any()
+    if name == "one_image_no_valid":
+        assert not got.any()
     if name.startswith("chain"):
         # A removes B, B would have removed C: C is kept
         assert got[0, 0::2].all() and not got[0, 1::2].any()
-    if name in ("random_K512", "dense_cluster", "class_offsets_data_stride"):
+    if name in ("random_K512", "dense_cluster", "class_offsets_data_stride",
+                "one_image_K512"):
         assert 0 < int(got.sum()) < int(valid.sum())  # something is removed
 
 
