@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line and raising on failure:
+Phases, each printing one JSON line (phase 12 one a family) and raising on
+failure:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: every ``podtpu_torch/csrc/*.cu`` built with nvcc from the
@@ -80,7 +81,23 @@ Phases, each printing one JSON line and raising on failure:
    and not ``last``'s; inside ``recalibrate_bn`` the stem's forward
    kernels once a batch and its backward never; each ``make_stats_step``
    leaves the state bit for bit; one recalibration batch held against the
-   stem's plain version on the card; seconds a recalibration batch.
+   stem's plain version on the card; seconds a recalibration batch;
+12. families: ``configs/yolov2_voc.yaml`` (416 px) and
+   ``configs/yolov1_voc.yaml`` (448 px) unchanged (bf16, 20 classes,
+   B=64), seeded weights carried in through the weight loader. Each:
+   requests through ``Engine`` and ``MicroBatcher`` (suppression once a
+   dispatch, no stem launch, no CPU tensor), forward / decode / NMS / total
+   ms at B=8 and 64; suppression on the model's own candidates (K = 512 of
+   845; K = 49, a partial mask word) bit-equal to the plain version at B=8
+   and 64, timed beside its bound; phase 7's train step (each stem kernel
+   once a step); a float32 model on the card against the CPU (heads
+   <= 1e-3); for YOLOv1 the stem kernels at 448 px (14 column tiles)
+   against their plain versions with phase 6's tolerances and planted
+   faults, and timed at B=64; then one epoch of 2 steps and ``validate``
+   through ``python -m podtpu_torch.cli.train_<model>`` on phase 9's files
+   and ``cli.test_<model>`` on its ``best`` (the same val_loss and
+   val_mAP), with the launch counts, no CPU tensor in a steady-state step,
+   the checkpoints written and then deleted.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -183,9 +200,12 @@ def random_weights(model, seed: int) -> dict[str, np.ndarray]:
     flat = {}
     for name, t in model.state_dict().items():
         key, shape = flat_key(name), tuple(t.shape)
-        if key.endswith("kernel"):  # HWIO
+        if key.endswith("kernel") and len(shape) == 4:  # HWIO
             o, i, kh, kw = shape
             arr = rng.normal(0.0, np.sqrt(2.0 / (i * kh * kw)), (kh, kw, i, o))
+        elif key.endswith("kernel"):  # a Dense kernel, [in, out]
+            o, i = shape
+            arr = rng.normal(0.0, np.sqrt(2.0 / i), (i, o))
         elif key.endswith("scale"):
             arr = rng.uniform(0.5, 1.5, shape)
         elif key.endswith("var"):
@@ -390,15 +410,15 @@ def stem_bound(kind, b, h, w, itemsize):
     return terms[by], "bytes" if by == "bytes" else "operations", terms
 
 
-def stem_inputs(b, dtype, dev, seed):
-    """Seeded stem operands at 416 px: images in [0, 1), He-normal HWIO
-    weights, BN affine, and a random normal pooled cotangent."""
+def stem_inputs(b, dtype, dev, seed, size=416):
+    """Seeded stem operands at ``size`` px: images in [0, 1), He-normal
+    HWIO weights, BN affine, and a random normal pooled cotangent."""
     r = np.random.default_rng(seed)
-    x = torch.from_numpy(r.random((b, 416, 416, 3), np.float32))
+    x = torch.from_numpy(r.random((b, size, size, 3), np.float32))
     w = r.normal(0.0, np.sqrt(2.0 / 27), (3, 3, 3, 32)).astype(np.float32)
     scale = r.uniform(0.5, 1.5, 32).astype(np.float32)
     bias = r.normal(0.0, 0.1, 32).astype(np.float32)
-    g = r.normal(0.0, 1.0, (b, 208, 208, 32)).astype(np.float32)
+    g = r.normal(0.0, 1.0, (b, size // 2, size // 2, 32)).astype(np.float32)
     as_t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     return (x.to(dev).to(dtype), as_t(w), as_t(scale), as_t(bias),
             as_t(g).to(dtype))
@@ -517,98 +537,100 @@ def dw_routed_last(sk, x, w, mul, add, mean, rinv, inv, c0, c1, g):
     return dw.permute(2, 3, 1, 0)
 
 
-def stem_phase(dev, card):
-    """Phase 6; returns the kernels-line entries of the four stem kernels."""
-    from podtpu_torch.ops.kernels import stem_kernel as sk
-
+def stem_dtype_checks(sk, dtype, dev, size, seed):
+    """The stem's kernels against their plain versions at B=8, ``size`` px
+    in ``dtype``: each kernel on the same inputs, and the whole op forward
+    and backward from one seeded cotangent; in bf16 also the planted
+    backward faults, each of which must fail these checks. Returns the
+    checks; raises where one fails."""
     n_eps = 1e-5
-    checks = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
-        t = STEM_TOL[dtype]
-        x, w, scale, bias, g = stem_inputs(8, dtype, dev, SEED + 3)
-        ok_k, c, _, vecs, d_r = stem_kernel_checks(sk, x, w, scale, bias, g,
-                                                   n_eps)
-        # the whole op: kernels (autograd.Function) against plain autograd,
-        # in the compute dtype and, for bf16, in float32 on the same
-        # bf16-valued inputs: the plain bf16 autograd rounds each partial
-        # gradient of the batch norm to bf16 before they cancel in
-        # d - mean(d) - xhat * mean(d * xhat), which at this n loses dW.
-        # Pool windows that tie after bf16 rounding route the cotangent to
-        # another pixel than in float32, a random O(1) term each, which
-        # bounds any bf16 dW's cosine with float32 near 0.99
-        outs = {}
-        for impl in ("kernels", "plain", "plain_f32"):
-            if impl == "plain_f32" and dtype == torch.float32:
-                continue
-            w0 = w.to(dtype).float() if impl == "plain_f32" else w
-            tw, ts, tb = (t_.clone().requires_grad_(True)
-                          for t_ in (w0, scale, bias))
-            if impl == "kernels":
-                pooled, m, v = sk.StemPoolFunction.apply(x, tw, ts, tb, n_eps)
-            else:
-                pdt = torch.float32 if impl == "plain_f32" else dtype
-                pooled, m, v = sk.stem_pool_reference_torch(
-                    x.to(pdt), tw, ts, tb, n_eps, pdt)
-            (pooled.float() * g.float()).sum().backward()
-            outs[impl] = (pooled.detach(), m.detach(), v.detach(), tw.grad,
-                          ts.grad, tb.grad)
-        kp, km, kv, kdw, kds, kdb = outs["kernels"]
-        pp, pm, pv, pdw, pds, pdb = outs["plain"]
-        ok_op, c["op_pooled"] = pooled_check(kp, pp, dtype)
-        c["op_mean_rel"], c["op_var_rel"] = rel_err(km, pm), rel_err(kv, pv)
-        ref = outs["plain_f32" if dtype == torch.bfloat16 else "plain"]
-        grads = {"dw": (kdw, ref[3]), "dscale": (kds, ref[4]),
-                 "dbias": (kdb, ref[5])}
-        c["op_grad_rel"] = {k: rel_err(a, b) for k, (a, b) in grads.items()}
-        c["op_grad_cos"] = {k: cosine(a, b) for k, (a, b) in grads.items()}
-        if dtype == torch.float32:
-            op_ok = max(c["op_grad_rel"].values()) <= t["bwd"]
+    t = STEM_TOL[dtype]
+    x, w, scale, bias, g = stem_inputs(8, dtype, dev, seed, size)
+    ok_k, c, _, vecs, d_r = stem_kernel_checks(sk, x, w, scale, bias, g,
+                                               n_eps)
+    # the whole op: kernels (autograd.Function) against plain autograd,
+    # in the compute dtype and, for bf16, in float32 on the same
+    # bf16-valued inputs: the plain bf16 autograd rounds each partial
+    # gradient of the batch norm to bf16 before they cancel in
+    # d - mean(d) - xhat * mean(d * xhat), which at this n loses dW.
+    # Pool windows that tie after bf16 rounding route the cotangent to
+    # another pixel than in float32, a random O(1) term each, which
+    # bounds any bf16 dW's cosine with float32 near 0.99
+    outs = {}
+    for impl in ("kernels", "plain", "plain_f32"):
+        if impl == "plain_f32" and dtype == torch.float32:
+            continue
+        w0 = w.to(dtype).float() if impl == "plain_f32" else w
+        tw, ts, tb = (t_.clone().requires_grad_(True)
+                      for t_ in (w0, scale, bias))
+        if impl == "kernels":
+            pooled, m, v = sk.StemPoolFunction.apply(x, tw, ts, tb, n_eps)
         else:
-            op_ok = min(c["op_grad_cos"].values()) >= t["op"]
-            plain = {"dw": pdw, "dscale": pds, "dbias": pdb}
-            c["plain_bf16_grad_cos_vs_f32"] = {
-                k: cosine(plain[k], b) for k, (_, b) in grads.items()}
-            c["kernels_grad_cos_vs_plain_bf16"] = {
-                k: cosine(a, plain[k]) for k, (a, _) in grads.items()}
-            # planted faults: each must fail the check meant to catch it,
-            # or that check's limit is too loose to tell a wrong backward
-            mul, add, mean, rinv, inv, c0, c1 = vecs
-            zero = torch.zeros_like(c0)
-            no_c0 = sk.stem_bwd_dw(x, w, mul, add, mean, rinv, inv, zero, c1, g)
-            no_c1 = sk.stem_bwd_dw(x, w, mul, add, mean, rinv, inv, c0, zero, g)
-            last = dw_routed_last(sk, x, w, *vecs, g)
-            faults = {
-                "dw_without_c0": {"op_dw_cos": cosine(no_c0, ref[3])},
-                "dw_without_c1": {"op_dw_cos": cosine(no_c1, ref[3])},
-                "dw_routed_to_last_max": {
-                    "op_dw_cos": cosine(last, ref[3]),
-                    "bwd_dw_cos": cosine(last, d_r),
-                    "bwd_dw_rel": rel_err(last, d_r)}}
-            for f in faults.values():
-                f["caught"] = (f["op_dw_cos"] < t["op"]
-                               or f.get("bwd_dw_cos", 1.0) < t["bwd_cos"]
-                               or f.get("bwd_dw_rel", 0.0) > t["bwd_rel"])
-            c["planted_faults"] = faults
-            if not all(f["caught"] for f in faults.values()):
-                raise AssertionError(f"a planted stem backward fault passes "
-                                     f"the checks: {faults}")
-        torch.cuda.synchronize()
-        ok = (ok_k and ok_op and op_ok
-              and max(c["op_mean_rel"], c["op_var_rel"]) <= t["stats"])
-        checks[name] = c
-        if not ok:
-            raise AssertionError(f"stem kernels differ from their plain "
-                                 f"versions in {name}: {c}")
+            pdt = torch.float32 if impl == "plain_f32" else dtype
+            pooled, m, v = sk.stem_pool_reference_torch(
+                x.to(pdt), tw, ts, tb, n_eps, pdt)
+        (pooled.float() * g.float()).sum().backward()
+        outs[impl] = (pooled.detach(), m.detach(), v.detach(), tw.grad,
+                      ts.grad, tb.grad)
+    kp, km, kv, kdw, kds, kdb = outs["kernels"]
+    pp, pm, pv, pdw, pds, pdb = outs["plain"]
+    ok_op, c["op_pooled"] = pooled_check(kp, pp, dtype)
+    c["op_mean_rel"], c["op_var_rel"] = rel_err(km, pm), rel_err(kv, pv)
+    ref = outs["plain_f32" if dtype == torch.bfloat16 else "plain"]
+    grads = {"dw": (kdw, ref[3]), "dscale": (kds, ref[4]),
+             "dbias": (kdb, ref[5])}
+    c["op_grad_rel"] = {k: rel_err(a, b) for k, (a, b) in grads.items()}
+    c["op_grad_cos"] = {k: cosine(a, b) for k, (a, b) in grads.items()}
+    if dtype == torch.float32:
+        op_ok = max(c["op_grad_rel"].values()) <= t["bwd"]
+    else:
+        op_ok = min(c["op_grad_cos"].values()) >= t["op"]
+        plain = {"dw": pdw, "dscale": pds, "dbias": pdb}
+        c["plain_bf16_grad_cos_vs_f32"] = {
+            k: cosine(plain[k], b) for k, (_, b) in grads.items()}
+        c["kernels_grad_cos_vs_plain_bf16"] = {
+            k: cosine(a, plain[k]) for k, (a, _) in grads.items()}
+        # planted faults: each must fail the check meant to catch it,
+        # or that check's limit is too loose to tell a wrong backward
+        mul, add, mean, rinv, inv, c0, c1 = vecs
+        zero = torch.zeros_like(c0)
+        no_c0 = sk.stem_bwd_dw(x, w, mul, add, mean, rinv, inv, zero, c1, g)
+        no_c1 = sk.stem_bwd_dw(x, w, mul, add, mean, rinv, inv, c0, zero, g)
+        last = dw_routed_last(sk, x, w, *vecs, g)
+        faults = {
+            "dw_without_c0": {"op_dw_cos": cosine(no_c0, ref[3])},
+            "dw_without_c1": {"op_dw_cos": cosine(no_c1, ref[3])},
+            "dw_routed_to_last_max": {
+                "op_dw_cos": cosine(last, ref[3]),
+                "bwd_dw_cos": cosine(last, d_r),
+                "bwd_dw_rel": rel_err(last, d_r)}}
+        for f in faults.values():
+            f["caught"] = (f["op_dw_cos"] < t["op"]
+                           or f.get("bwd_dw_cos", 1.0) < t["bwd_cos"]
+                           or f.get("bwd_dw_rel", 0.0) > t["bwd_rel"])
+        c["planted_faults"] = faults
+        if not all(f["caught"] for f in faults.values()):
+            raise AssertionError(f"a planted stem backward fault passes "
+                                 f"the checks at {size} px: {faults}")
+    torch.cuda.synchronize()
+    ok = (ok_k and ok_op and op_ok
+          and max(c["op_mean_rel"], c["op_var_rel"]) <= t["stats"])
+    if not ok:
+        raise AssertionError(f"stem kernels differ from their plain "
+                             f"versions in {dtype} at {size} px: {c}")
+    return c
 
-    # at the train step's shape (B=64, 416 px, bf16): the same per-kernel
-    # checks, then each kernel timed
-    x, w, scale, bias, g = stem_inputs(64, torch.bfloat16, dev, SEED + 4)
-    ok, checks["bfloat16_B64"], max_err, vecs, _ = stem_kernel_checks(
-        sk, x, w, scale, bias, g, n_eps)
+
+def stem_timing(sk, dev, size, seed):
+    """At the train step's shape (B=64, ``size`` px, bf16): the per-kernel
+    checks again, then each kernel timed beside its bound and its plain
+    version. Returns (checks, max_abs_err per kernel, timing, operands)."""
+    x, w, scale, bias, g = stem_inputs(64, torch.bfloat16, dev, seed, size)
+    ok, checks, max_err, vecs, _ = stem_kernel_checks(
+        sk, x, w, scale, bias, g, 1e-5)
     if not ok:
         raise AssertionError(f"stem kernels differ from their plain versions "
-                             f"at B=64 bf16: {checks['bfloat16_B64']}")
+                             f"at B=64 bf16, {size} px: {checks}")
     mul, add, mean, rinv = vecs[:4]
     args = {"stats": (x, w), "emit": (x, w, mul, add),
             "bwd_sums": (x, w, mul, add, mean, rinv, g),
@@ -620,11 +642,24 @@ def stem_phase(dev, card):
              "bwd_dw": sk.stem_bwd_dw_reference}
     timing = {}
     for k in STEM_REPLACES:
-        bound_ms, bound_by, terms = stem_bound(k, 64, 416, 416, 2)
+        bound_ms, bound_by, terms = stem_bound(k, 64, size, size, 2)
         timing[k] = {"ms": cuda_ms(lambda: kern[k](*args[k]), 20),
                      "plain_ms": cuda_ms(lambda: plain[k](*args[k]), 5),
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "bound_terms_ms": terms}
+    return checks, max_err, timing, (x, w, scale, bias, g)
+
+
+def stem_phase(dev, card):
+    """Phase 6; returns the kernels-line entries of the four stem kernels."""
+    from podtpu_torch.ops.kernels import stem_kernel as sk
+
+    n_eps = 1e-5
+    checks = {str(dtype).split(".")[-1]: stem_dtype_checks(
+        sk, dtype, dev, 416, SEED + 3)
+        for dtype in (torch.bfloat16, torch.float32)}
+    checks["bfloat16_B64"], max_err, timing, (x, w, scale, bias, g) = (
+        stem_timing(sk, dev, 416, SEED + 4))
 
     # the whole op, forward + backward: kernels, plain, stock composition
     def op(fn):
@@ -694,8 +729,8 @@ def synthetic_annotations(cfg, batch, seed):
 
 
 def train_phase(cfg, flat, dev, card):
-    """Phase 7; returns the stem kernels' launch counts of the timed run
-    and its img/s."""
+    """Phase 7 for ``cfg``'s model: returns the stem kernels' launch counts
+    of the timed run, its img/s and the phase's record."""
     from podtpu_torch.losses import build_loss
     from podtpu_torch.ops.kernels.nms_kernel import greedy_suppress
     from podtpu_torch.ops.kernels.stem_kernel import stem_fused
@@ -705,8 +740,8 @@ def train_phase(cfg, flat, dev, card):
     b = int(cfg["batch_size"])
     if (b, cfg["max_annots"], cfg["optimizer"], cfg["scheduler"]) != (
             64, 64, "sgd", "yolo_lr"):
-        raise AssertionError("configs/yolov3_voc.yaml is not the batch-64 "
-                             "nesterov-SGD yolo_lr recipe")
+        raise AssertionError(f"the {cfg['model']} config is not the "
+                             f"batch-64 nesterov-SGD yolo_lr recipe")
     torch.cuda.reset_peak_memory_stats()
     state = create_train_state(cfg, dev, weights=flat)
     step = make_train_step(cfg)
@@ -715,10 +750,12 @@ def train_phase(cfg, flat, dev, card):
     img = torch.from_numpy(r.random((b, size, size, 3), np.float32)).to(dev)
     annot = torch.from_numpy(synthetic_annotations(cfg, b, SEED)).to(dev)
     batch = {"img": img, "annot": annot}
+    # the stem's BN statistics and the last BN layer's
+    last_bn = [k for k in state.model.state_dict()
+               if k.endswith("bn.running_var")][-1]
     bns = {k: v.clone() for k, v in state.model.state_dict().items()
            if k in ("backbone.stage0.conv0.bn.running_mean",
-                    "backbone.stage0.conv0.bn.running_var",
-                    "p3_head.expand.bn.running_var")}
+                    "backbone.stage0.conv0.bn.running_var", last_bn)}
     losses = []
     for _ in range(3):
         state, m = step(state, batch)
@@ -774,15 +811,15 @@ def train_phase(cfg, flat, dev, card):
         torch.cuda.synchronize()
         for i, k in enumerate(split):
             split[k] += ev[i].elapsed_time(ev[i + 1]) / reps
-    emit({"phase": "train", "model": "yolov3", "input_size": size,
-          "compute_dtype": cfg["compute_dtype"], "batch": b,
-          "timed_steps": iters, "launches": launches,
-          "loss_first_last": [loss_vals[0], loss_vals[-1]],
-          "bn_stats_moved": moved, "ms_per_step": step_ms,
-          "img_per_s": b * 1e3 / step_ms, "split_ms": split,
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "card": card})
-    return launches, b * 1e3 / step_ms
+    record = {"model": cfg["model"], "input_size": size,
+              "compute_dtype": cfg["compute_dtype"], "batch": b,
+              "timed_steps": iters, "launches": launches,
+              "loss_first_last": [loss_vals[0], loss_vals[-1]],
+              "bn_stats_moved": moved, "ms_per_step": step_ms,
+              "img_per_s": b * 1e3 / step_ms, "split_ms": split,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "card": card}
+    return launches, b * 1e3 / step_ms, record
 
 
 def _update(after, before):
@@ -1690,6 +1727,326 @@ def swa_phase(fit: dict, dev, card, tmp: str) -> dict:
     return launches, recal
 
 
+# the families of phase 12: (model, config's input size, candidates a
+# serving image hands suppression)
+FAMILIES = (("yolov2", 416, 512), ("yolov1", 448, 49))
+
+
+def _add_counts(total: dict, part: dict) -> dict:
+    return {k: total.get(k, 0) + part.get(k, 0) for k in {**total, **part}}
+
+
+def serve_requests(engine, reqs, n_threads):
+    """Answer the images ``reqs`` through ``engine`` from ``n_threads``
+    client threads, after one warm-up dispatch outside the count; the
+    kernel counters are zeroed just before the requests and read just
+    after. Returns (results, launches, dispatches, seconds)."""
+    results = [None] * len(reqs)
+
+    def client(t):
+        for i in range(t, len(reqs), n_threads):
+            results[i] = engine.predict_array(reqs[i])
+
+    engine.predict_array(reqs[0])  # warm-up dispatch, outside the count
+    fills_before = sum(engine.stats.fills.values())
+    torch.cuda.synchronize()
+    _zero_counts()
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    dispatches = sum(engine.stats.fills.values()) - fills_before
+    engine.close()
+    return results, launches, dispatches, seconds
+
+
+def serving_checks(engine, results, launches, dispatches, batch8, dev):
+    """Every request answered with finite detections in range, suppression
+    once a dispatch, no stem launch (eval mode), and no CPU tensor on the
+    serve graph at B=8 (its output finite [8, 100, 6])."""
+    from podtpu_torch.train.steps import _as_input
+
+    max_det = engine.cfg["max_detections"]
+    num_classes = engine.cfg["num_classes"]
+    n_det = [r["num_detections"] for r in results if r is not None]
+    rows = [d for r in results if r is not None for d in r["detections"]]
+    spy = _CpuTensorSpy()
+    with spy:
+        dets, _ = engine.serve(_as_input(batch8))
+    return {
+        "answered": len(n_det) == len(results),
+        "suppress_once_a_dispatch":
+            launches["greedy_suppress"] == dispatches > 0,
+        "no_stem_kernel": all(launches[f"stem_{k}"] == 0
+                              for k in STEM_REPLACES),
+        "detections": all(
+            np.isfinite(d["box_cxcywh_input"]).all()
+            and 0 < d["confidence"] <= 1 and 0 <= d["class_id"] < num_classes
+            for d in rows) and 0 < max(n_det, default=0) <= max_det,
+        "no_cpu_tensors": not spy.cpu_ops and dets.device.type == dev.type,
+        "serve_output": dets.shape == (8, max_det, 6)
+        and bool(torch.isfinite(dets).all()),
+    }
+
+
+def stage_ms(engine, decoder, nms, images):
+    """{"B<b>": forward / decode / NMS / total ms} of the serve graph on
+    ``images`` (mean of 20 calls at B=8, 5 at B=64, after warm-up)."""
+    from podtpu_torch.train.steps import _as_input
+
+    timings = {}
+    with torch.inference_mode():
+        for b, x in images.items():
+            xf = _as_input(x)
+            preds = engine.model(xf)
+            cands = decoder(preds)
+            iters = 20 if b == 8 else 5
+            timings[f"B{b}"] = {
+                "forward_ms": cuda_ms(lambda: engine.model(xf), iters),
+                "decode_ms": cuda_ms(lambda: decoder(preds), iters),
+                "nms_ms": cuda_ms(lambda: nms(cands), iters),
+                "total_ms": cuda_ms(lambda: engine.serve(xf), iters),
+            }
+    return timings
+
+
+def family_serving(cfg, flat, dev, rng, k_own):
+    """Serving of one family: requests through ``Engine`` and
+    ``MicroBatcher`` (suppression once a dispatch, no stem launch, no CPU
+    tensor on the path), the forward / decode / NMS / total ms at B=8 and
+    64, and suppression on the model's own candidates (K = ``k_own``) held
+    bit for bit against the plain version and timed. Returns (record,
+    launches of the requests, the suppression's timing at B=8)."""
+    from podtpu_torch.ops.kernels.nms_kernel import (
+        greedy_suppress,
+        greedy_suppress_reference,
+    )
+    from podtpu_torch.serve import Engine
+    from podtpu_torch.train.steps import _decoder_and_nms
+
+    size = int(cfg["input_size"])
+    engine = Engine(cfg, flat, device=dev, max_batch=8, window_ms=20.0)
+    decoder, nms = _decoder_and_nms(cfg)
+    thr = float(cfg["nms_iou_threshold"])
+    images = {b: torch.from_numpy(rng.integers(
+        0, 256, (b, size, size, 3), dtype=np.uint8)).to(dev) for b in (8, 64)}
+    reqs = rng.integers(0, 256, (16, size, size, 3), dtype=np.uint8)
+    results, launches, dispatches, _ = serve_requests(engine, reqs, 4)
+    checks = serving_checks(engine, results, launches, dispatches,
+                            images[8], dev)
+    n_det = [r["num_detections"] for r in results if r is not None]
+    timings = stage_ms(engine, decoder, nms, images)
+
+    # suppression on the model's own candidates
+    real = yolo_candidates(engine.model, decoder, cfg, images)
+    keep, suppress = {}, {}
+    with torch.inference_mode():
+        for b, (boxes, valid) in real.items():
+            got = greedy_suppress(boxes, valid, thr)
+            torch.cuda.synchronize()
+            want = greedy_suppress_reference(boxes, valid, thr)
+            keep[f"B{b}"] = {"shape": list(boxes.shape),
+                             "valid": int(valid.sum()),
+                             "kept": int(got.sum()),
+                             "mismatches": int((got != want).sum())}
+            run = lambda: greedy_suppress(boxes, valid, thr)  # noqa: E731
+            t = suppress[f"B{b}"] = {
+                "ms": cuda_ms(run, 200 if b == 8 else 100, warmup=10)}
+            t["device_ms"], t["device_ms_by"] = device_ms(run)
+            t["plain_ms"] = cuda_ms(
+                lambda: greedy_suppress_reference(boxes, valid, thr), 5)
+            (t["bound_ms"], t["bound_by"], t["bytes"],
+             t["ops"]) = suppress_bound(boxes, valid, thr)
+    checks["suppress_keep_masks_equal"] = all(
+        v["mismatches"] == 0 and v["shape"][1] == k_own and v["valid"] > 0
+        for v in keep.values())
+    record = {"requests": len(reqs), "dispatches": dispatches,
+              "serve_launches": launches,
+              "detections_per_request": [min(n_det, default=0),
+                                         max(n_det, default=0)],
+              "latency_ms": engine.stats.snapshot()["latency_ms"],
+              "ms_per_batch": timings, "suppress_keep": keep,
+              "suppress": suppress}
+    del engine
+    return checks, record, launches, suppress["B8"]
+
+
+def card_vs_cpu(cfg, size, seed, rng, dev):
+    """``cfg``'s model at ``size`` px in float32 on the card against the
+    same on the CPU (TF32 off): the heads and the detections. Returns (ok,
+    record)."""
+    from podtpu_torch.export.weights import load_flat_weights
+    from podtpu_torch.models.factory import build_model
+    from podtpu_torch.train.steps import _as_input, _decoder_and_nms
+
+    small = dict(cfg, input_size=size, compute_dtype="float32")
+    sflat = random_weights(build_model(small, "cpu"), seed)
+    x = rng.integers(0, 256, (2, size, size, 3), dtype=np.uint8)
+    outs = []
+    for d in ("cpu", dev):
+        m = load_flat_weights(build_model(small, d), sflat)
+        dec, nms_d = _decoder_and_nms(small)
+        with torch.inference_mode():
+            heads = m(_as_input(torch.from_numpy(x).to(d)))
+            dets = [t.cpu() for t in nms_d(dec(heads))]
+            heads = [heads] if torch.is_tensor(heads) else heads
+            outs.append(([h.cpu() for h in heads], dets))
+    (cpu_heads, (cpu_dets, cpu_valid)), (heads, (dets, valid)) = outs
+    rec = {"input_size": size,
+           "head_max_abs_err": max(float((a - b).abs().max())
+                                   for a, b in zip(cpu_heads, heads)),
+           "valid_equal": torch.equal(cpu_valid, valid),
+           "det_max_abs_err": float((cpu_dets - dets).abs().max())}
+    ok = (rec["head_max_abs_err"] <= 1e-3 and rec["valid_equal"]
+          and rec["det_max_abs_err"] <= 1e-2)
+    return ok, rec
+
+
+def family_fit(cfg, fit, dev, tmp):
+    """A short run from files through the family's own entry points: its
+    config with phase 9's synthetic JPEGs, one epoch (2 steps of 64) and
+    ``validate`` through ``cli.train_<model>``, then ``cli.test_<model>``
+    on its ``best``. Returns (checks, record, launches of both runs)."""
+    import importlib
+    import shutil
+
+    import yaml
+
+    from podtpu_torch.train.run import make_loaders
+
+    name = cfg["model"]
+    train_cli = importlib.import_module(f"podtpu_torch.cli.train_{name}")
+    test_cli = importlib.import_module(f"podtpu_torch.cli.test_{name}")
+    runs = os.path.join(tmp, f"runs_{name}")
+    fcfg = dict(cfg, train_list=fit["data"]["train_list"],
+                val_list=fit["data"]["val_list"], names=fit["data"]["names"],
+                save_dir=runs, epochs=1,
+                trainer_options={"check_val_every_n_epoch": 1})
+    path = os.path.join(tmp, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(fcfg, f)
+    try:
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(["--cfg", path, "--device", str(dev)])
+        torch.cuda.synchronize()
+        fit_s, fit_launches = time.perf_counter() - t0, _counts()
+        ckpt_dir = os.path.join(trainer.run_dir, "checkpoints")
+        found = sorted(os.listdir(ckpt_dir))
+        # no CPU tensor inside a steady-state train step and eval step
+        batch = trainer._put({k: v for k, v in next(iter(
+            make_loaders(fcfg)[0])).items() if k != "n_valid"})
+        spies = {}
+        for step_name, fn in (("train_step", trainer.train_step),
+                              ("eval_step", trainer.eval_step)):
+            spies[step_name] = _CpuTensorSpy()
+            with spies[step_name]:
+                fn(trainer.state, batch)
+        torch.cuda.synchronize()
+        (row,) = trainer.history
+        del trainer
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = test_cli.main(["--cfg", path, "--device", str(dev), "--ckpt",
+                             os.path.join(ckpt_dir, "best")])
+        torch.cuda.synchronize()
+        test_s, test_launches = time.perf_counter() - t0, _counts()
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    checks = {
+        "fit_stem_once_per_step": all(fit_launches[f"stem_{k}"] == 2
+                                      for k in STEM_REPLACES),
+        "fit_suppress_once_per_val_batch":
+            fit_launches["greedy_suppress"] == 2,
+        "test_suppress_only": test_launches["greedy_suppress"] == 2
+        and all(test_launches[f"stem_{k}"] == 0 for k in STEM_REPLACES),
+        "no_cpu_tensors": not any(s.cpu_ops for s in spies.values()),
+        "checkpoints": {"last", "best"} <= set(found),
+        "finite": bool(np.isfinite([row["train_loss"], row["val_loss"]]).all())
+        and 0.0 <= row["val_mAP"] <= 1.0,
+        "test_matches_fit": abs(res["val_loss"] - row["val_loss"])
+        <= 1e-5 * abs(row["val_loss"])
+        and abs(res["val_mAP"] - row["val_mAP"]) <= 1e-6,
+    }
+    record = {"fit_row": row, "test": res, "checkpoints": found,
+              "fit_seconds": fit_s, "test_seconds": test_s,
+              "fit_launches": fit_launches, "test_launches": test_launches,
+              "cpu_ops": {k: sorted(set(s.cpu_ops))
+                          for k, s in spies.items()}}
+    return checks, record, _add_counts(fit_launches, test_launches)
+
+
+def families_phase(fit, dev, card, tmp):
+    """Phase 12: YOLOv2-416 and YOLOv1-448, each config unchanged (bf16,
+    20 classes, B=64) with seeded weights carried in through the weight
+    loader: serving, suppression on the model's own candidates (K = 512 of
+    845; K = 49), the train step, a float32 card-against-CPU check, at
+    448 px the stem kernels against their plain versions (planted faults
+    included) and timed, and a short run from phase 9's files through the
+    family's entry points. Returns the launches on these paths, the
+    suppression's timings at each family's K and the stem's at 448 px."""
+    from podtpu_torch.config import get_configs
+    from podtpu_torch.models.factory import build_model
+    from podtpu_torch.ops.kernels import stem_kernel as sk
+
+    launches, suppress, stem448 = {}, {}, None
+    for i, (name, size, k_own) in enumerate(FAMILIES):
+        t_family = time.perf_counter()
+        cfg = get_configs(os.path.join(REPO, "configs", f"{name}_voc.yaml"))
+        if (cfg["input_size"], cfg["num_classes"], cfg["compute_dtype"],
+                cfg["batch_size"]) != (size, 20, "bfloat16", 64):
+            raise AssertionError(f"configs/{name}_voc.yaml is not {size} px "
+                                 f"bf16 on 20 classes at B=64")
+        rng = np.random.default_rng(SEED + 10 + i)
+        flat = random_weights(build_model(cfg, dev), SEED + 10 + i)
+        checks, serving, serve_launches, suppress[name] = family_serving(
+            cfg, flat, dev, rng, k_own)
+        train_launches, _, train = train_phase(cfg, flat, dev, card)
+        del flat
+        # YOLOv1 at 96 px, so that its flatten sees a 2x2 map
+        ok_ref, reference = card_vs_cpu(
+            cfg, 96 if name == "yolov1" else 64, SEED + 21, rng, dev)
+        checks["card_vs_cpu_float32"] = ok_ref
+        record = {"phase": "families", "config": f"configs/{name}_voc.yaml",
+                  "serving": serving, "train": train,
+                  "reference": reference}
+        if name == "yolov1":
+            record["stem_448"] = {
+                str(dt).split(".")[-1]: stem_dtype_checks(sk, dt, dev, size,
+                                                          SEED + 12)
+                for dt in (torch.bfloat16, torch.float32)}
+            (record["stem_448"]["bfloat16_B64"], err, timing,
+             _) = stem_timing(sk, dev, size, SEED + 13)
+            stem448 = {"max_abs_err": err, "timing": timing}
+            record["stem_448"]["timing_B64_bf16"] = timing
+        fit_checks, record["fit"], fit_launches = family_fit(cfg, fit, dev,
+                                                             tmp)
+        checks.update(fit_checks)
+        launches = _add_counts(launches, _add_counts(
+            _add_counts(serve_launches, fit_launches),
+            {f"stem_{k}": v for k, v in train_launches.items()}))
+        record.update(checks=checks, seconds=time.perf_counter() - t_family,
+                      tolerance="keep masks exact; heads 1e-3 abs, "
+                                "detections 1e-2 px with equal valid masks "
+                                "(float32 card vs CPU); test vs fit: "
+                                "val_loss 1e-5 rel, val_mAP 1e-6; the stem "
+                                "as phase stem_kernels",
+                      card=card)
+        emit(record)
+        if not all(checks.values()):
+            raise AssertionError(f"the families phase failed its checks for "
+                                 f"{name}: "
+                                 f"{ {k: v for k, v in checks.items() if not v} }")
+        torch.cuda.empty_cache()
+    return launches, suppress, stem448
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1697,7 +2054,6 @@ def main() -> int:
         return 1
 
     from podtpu_torch.config import get_configs
-    from podtpu_torch.export.weights import load_flat_weights
     from podtpu_torch.models.factory import build_model
     from podtpu_torch.ops.kernels import build
     from podtpu_torch.ops.kernels.nms_kernel import (
@@ -1705,9 +2061,8 @@ def main() -> int:
         greedy_suppress,
         greedy_suppress_reference,
     )
-    from podtpu_torch.ops.kernels.stem_kernel import stem_fused
     from podtpu_torch.serve import Engine
-    from podtpu_torch.train.steps import _as_input, _decoder_and_nms
+    from podtpu_torch.train.steps import _decoder_and_nms
 
     dev = torch.device("cuda")
 
@@ -1817,77 +2172,22 @@ def main() -> int:
                               "bytes": nbytes, "ops": nops, "card": card}})
 
     # 4. the slice: serve requests through Engine + MicroBatcher
-    n_threads, per_thread = 4, 6
-    reqs = rng.integers(0, 256, (n_threads * per_thread, 416, 416, 3),
-                        dtype=np.uint8)
-    results = [None] * len(reqs)
-
-    def client(t):
-        for i in range(t, len(reqs), n_threads):
-            results[i] = engine.predict_array(reqs[i])
-
-    engine.predict_array(reqs[0])  # warm-up dispatch, outside the count
-    fills_before = sum(engine.stats.fills.values())
-    greedy_suppress.launches = 0
-    for k in stem_fused.launches:
-        stem_fused.launches[k] = 0
-    threads = [threading.Thread(target=client, args=(t,))
-               for t in range(n_threads)]
-    t0 = time.perf_counter()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=300)
-    serve_s = time.perf_counter() - t0
-    launches = greedy_suppress.launches
-    stem_launches = sum(stem_fused.launches.values())
-    dispatches = sum(engine.stats.fills.values()) - fills_before
-    engine.close()
-    if any(t.is_alive() for t in threads) or any(r is None for r in results):
-        raise AssertionError("not every request was answered")
-    if launches == 0 or launches != dispatches:
-        raise AssertionError(f"greedy_suppress launched {launches} times "
-                             f"for {dispatches} dispatches")
-    if stem_launches:
-        raise AssertionError(f"serving (eval mode) launched the train-mode "
-                             f"stem kernels {stem_launches} times")
+    n_threads = 4
+    reqs = rng.integers(0, 256, (n_threads * 6, 416, 416, 3), dtype=np.uint8)
+    results, launches, dispatches, serve_s = serve_requests(engine, reqs,
+                                                            n_threads)
+    checks = serving_checks(engine, results, launches, dispatches,
+                            images[8], dev)
+    if not all(checks.values()):
+        raise AssertionError(f"the slice phase failed its checks: "
+                             f"{ {k: v for k, v in checks.items() if not v} }")
     n_det = [r["num_detections"] for r in results]
-    for r in results:
-        for d in r["detections"]:
-            box = np.array(d["box_cxcywh_input"] + [d["confidence"]])
-            if not (np.isfinite(box).all() and 0 < d["confidence"] <= 1
-                    and 0 <= d["class_id"] < 20):
-                raise AssertionError(f"bad detection {d}")
-    if not 0 < max(n_det) <= cfg["max_detections"]:
-        raise AssertionError(f"detections per request out of range: {n_det}")
-
-    serve = engine.serve
-    spy = _CpuTensorSpy()
-    with spy:
-        dets, valid = serve(_as_input(images[8]))
-    if spy.cpu_ops or dets.device.type != "cuda":
-        raise AssertionError(f"CPU tensors on the serving path: "
-                             f"{sorted(set(spy.cpu_ops))}")
-    if dets.shape != (8, 100, 6) or not torch.isfinite(dets).all():
-        raise AssertionError("serve output is not finite [8, 100, 6]")
-
-    timings = {}
-    with torch.inference_mode():
-        for b, x in images.items():
-            xf = _as_input(x)
-            preds = engine.model(xf)
-            cands = decoder(preds)
-            iters = 20 if b == 8 else 5
-            timings[f"B{b}"] = {
-                "forward_ms": cuda_ms(lambda: engine.model(xf), iters),
-                "decode_ms": cuda_ms(lambda: decoder(preds), iters),
-                "nms_ms": cuda_ms(lambda: nms(cands), iters),
-                "total_ms": cuda_ms(lambda: serve(xf), iters),
-            }
+    timings = stage_ms(engine, decoder, nms, images)
     emit({"phase": "slice", "model": "yolov3", "input_size": 416,
           "compute_dtype": cfg["compute_dtype"], "num_classes": 20,
           "requests": len(reqs), "threads": n_threads, "micro_batch": 8,
-          "dispatches": dispatches, "launches": {"greedy_suppress": launches},
+          "dispatches": dispatches,
+          "launches": {"greedy_suppress": launches["greedy_suppress"]},
           "detections_per_request": [min(n_det), max(n_det)],
           "serve_seconds": round(serve_s, 3),
           "latency_ms": engine.stats.snapshot()["latency_ms"],
@@ -1896,32 +2196,17 @@ def main() -> int:
     # 5. a small float32 model on the card against the same on the CPU
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    small = dict(cfg, input_size=64, compute_dtype="float32")
-    sflat = random_weights(build_model(small, "cpu"), SEED + 1)
-    x = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
-    outs = {}
-    for d in ("cpu", "cuda"):
-        m = load_flat_weights(build_model(small, d), sflat)
-        dec, nms_d = _decoder_and_nms(small)
-        with torch.inference_mode():
-            heads = m(_as_input(torch.from_numpy(x).to(d)))
-            outs[d] = ([h.cpu() for h in heads],
-                       [t.cpu() for t in nms_d(dec(heads))])
-    head_err = max(float((a - b).abs().max())
-                   for a, b in zip(outs["cpu"][0], outs["cuda"][0]))
-    same_valid = torch.equal(outs["cpu"][1][1], outs["cuda"][1][1])
-    det_err = float((outs["cpu"][1][0] - outs["cuda"][1][0]).abs().max())
-    emit({"phase": "reference", "input_size": 64, "dtype": "float32",
-          "tf32": False, "head_max_abs_err": head_err,
-          "valid_equal": same_valid, "det_max_abs_err": det_err,
+    ok, rec = card_vs_cpu(cfg, 64, SEED + 1, rng, dev)
+    emit({"phase": "reference", "dtype": "float32", "tf32": False, **rec,
           "tolerance": "heads 1e-3 abs (conv summation order), "
                        "detections 1e-2 px with equal valid masks"})
-    if head_err > 1e-3 or not same_valid or det_err > 1e-2:
+    if not ok:
         raise AssertionError("card and CPU disagree on the 64 px f32 model")
 
     # 6.-8. the training slice (TF32 stays off from phase 5)
     stem_entries = stem_phase(dev, card)
-    train_launches, step_img_s = train_phase(cfg, flat, dev, card)
+    train_launches, step_img_s, record = train_phase(cfg, flat, dev, card)
+    emit({"phase": "train", **record})
     for e in stem_entries:
         e["launches"] = train_launches[e["name"][len("stem_"):]]
     train_reference_phase(cfg, dev)
@@ -1936,6 +2221,9 @@ def main() -> int:
         fit_launches, fit = fit_phase(dev, card, step_img_s, tmp)
         consume_launches, suppress_b1 = consume_phase(fit, dev, card, tmp)
         swa_launches, recal = swa_phase(fit, dev, card, tmp)
+        # 12. the YOLOv2 and YOLOv1 families on the same files
+        family_launches, family_suppress, stem448 = families_phase(
+            fit, dev, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for e in stem_entries:
@@ -1944,6 +2232,13 @@ def main() -> int:
         e["launches_swa"] = swa_launches[e["name"]]
         e["launches_recalibrate_bn"] = recal["launches"][
             e["name"][len("stem_"):]]
+        e["launches_families"] = family_launches[e["name"]]
+        t448 = stem448["timing"][e["name"][len("stem_"):]]
+        e.update(ms_448=t448["ms"], plain_ms_448=t448["plain_ms"],
+                 bound_ms_448=t448["bound_ms"],
+                 max_abs_err_448=stem448["max_abs_err"][
+                     e["name"][len("stem_"):]])
+    v1, v2 = family_suppress["yolov1"], family_suppress["yolov2"]
 
     emit({"kernels": [{
         "name": "greedy_suppress",
@@ -1962,6 +2257,11 @@ def main() -> int:
         "device_ms_B1": suppress_b1["device_ms"],
         "plain_ms_B1": suppress_b1["plain_ms"],
         "bound_ms_B1": suppress_b1["bound_ms"],
+        "launches_families": family_launches["greedy_suppress"],
+        "ms_K49": v1["ms"], "device_ms_K49": v1["device_ms"],
+        "plain_ms_K49": v1["plain_ms"], "bound_ms_K49": v1["bound_ms"],
+        "ms_v2": v2["ms"], "device_ms_v2": v2["device_ms"],
+        "plain_ms_v2": v2["plain_ms"], "bound_ms_v2": v2["bound_ms"],
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,

@@ -14,7 +14,11 @@ port (``state_dict``)               ``podtpu`` (flat ``.npz``)
 ``<path>.bn.bias``                  ``params::<path>::bn::bias``
 ``<path>.bn.running_mean``          ``batch_stats::<path>::bn::mean``
 ``<path>.bn.running_var``           ``batch_stats::<path>::bn::var``
+``<path>.fc.weight`` [out, in]      ``params::<path>::fc::kernel`` [in, out]
+``<path>.fc.bias``                  ``params::<path>::fc::bias``
 ==================================  ======================================
+
+(``<path>.`` is empty for a module at the top, as YOLOv1's ``fc``.)
 
 Any key the mapping does not cover, and any key missing on either side,
 raises.
@@ -34,15 +38,18 @@ _LEAVES = {
     "bn.bias": ("params", "bn::bias"),
     "bn.running_mean": ("batch_stats", "bn::mean"),
     "bn.running_var": ("batch_stats", "bn::var"),
+    "fc.weight": ("params", "fc::kernel"),
+    "fc.bias": ("params", "fc::bias"),
 }
 
 
 def flat_key(name: str) -> str:
     """state_dict key -> ``podtpu`` flat key."""
     for leaf, (collection, jax_leaf) in _LEAVES.items():
-        if name.endswith("." + leaf):
-            path = name[:-len(leaf) - 1].replace(".", SEP)
-            return SEP.join((collection, path, jax_leaf))
+        if name == leaf or name.endswith("." + leaf):
+            path = name[:-len(leaf)].rstrip(".")
+            parts = [collection, path.replace(".", SEP), jax_leaf]
+            return SEP.join(p for p in parts if p)
     raise KeyError(f"no podtpu counterpart for state_dict key '{name}'")
 
 
@@ -50,6 +57,8 @@ def _to_torch(name: str, arr: np.ndarray) -> torch.Tensor:
     t = torch.from_numpy(np.array(arr, dtype=np.float32))  # a writable copy
     if name.endswith("conv.weight"):
         t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW
+    elif name.endswith("fc.weight"):
+        t = t.t()  # [in, out] -> [out, in]
     return t.contiguous()
 
 
@@ -57,6 +66,8 @@ def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
     t = t.detach().float().cpu()
     if name.endswith("conv.weight"):
         t = t.permute(2, 3, 1, 0)  # OIHW -> HWIO
+    elif name.endswith("fc.weight"):
+        t = t.t()  # [out, in] -> [in, out]
     # a copy: a float32 CPU tensor's numpy() shares its memory, which the
     # next optimizer step or BN update would rewrite
     return np.array(t.numpy(), order="C", copy=True)

@@ -5,6 +5,8 @@ from __future__ import annotations
 import torch
 
 from podtpu_torch import resolve_device
+from podtpu_torch.models.yolov1 import YoloV1
+from podtpu_torch.models.yolov2 import YoloV2
 from podtpu_torch.models.yolov3 import YoloV3
 
 _DTYPES = {
@@ -13,7 +15,7 @@ _DTYPES = {
 }
 
 # families of podtpu's factory that the port does not build yet
-_LATER = ("yolov1", "yolov2", "yolov4-tiny", "yolov4", "retinanet")
+_LATER = ("yolov4-tiny", "yolov4", "retinanet")
 
 
 def compute_dtype(cfg: dict) -> torch.dtype:
@@ -33,13 +35,18 @@ def build_model(cfg: dict, device: str | torch.device | None = None,
         raise NotImplementedError("qat (fake-quant training) is not ported "
                                   "yet (ROADMAP.md queue 1, train-step "
                                   "options)")
-    if name == "yolov3":
-        model = YoloV3(num_classes=cfg["num_classes"],
-                       num_anchors=len(cfg["anchors"]),
-                       in_channels=cfg.get("in_channels", 3),
-                       dtype=compute_dtype(cfg))
-        return model.to(resolve_device(device)).train(train)
     if name in _LATER:
         raise NotImplementedError(f"model '{name}' is not ported yet "
                                   "(ROADMAP.md queue 1, other families)")
-    raise ValueError(f"unknown model '{name}'")
+    kw = dict(num_classes=cfg["num_classes"],
+              in_channels=cfg.get("in_channels", 3), dtype=compute_dtype(cfg))
+    if name == "yolov1":
+        model = YoloV1(num_boxes=cfg["num_boxes"],
+                       input_size=cfg["input_size"], **kw)
+    elif name == "yolov2":
+        model = YoloV2(num_anchors=len(cfg["scaled_anchors"]), **kw)
+    elif name == "yolov3":
+        model = YoloV3(num_anchors=len(cfg["anchors"]), **kw)
+    else:
+        raise ValueError(f"unknown model '{name}'")
+    return model.to(resolve_device(device)).train(train)

@@ -80,19 +80,22 @@ class BatchNormMixed(nn.Module):
 
 
 class ConvBnAct(nn.Module):
-    """Conv2d(stride 1, pad=(k-1)//2, bias=False) + BatchNorm + ReLU."""
+    """Conv2d(pad=(k-1)//2 on both sides, bias=False) + BatchNorm + ReLU.
+
+    ``podtpu`` pads symmetrically, so a stride-2 conv is torch's
+    ``padding=p, stride=2`` and not a ``'same'`` one."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, strides: int = 1):
         super().__init__()
         self.dtype = dtype
-        self.conv = nn.Conv2d(in_ch, features, kernel_size,
+        self.conv = nn.Conv2d(in_ch, features, kernel_size, stride=strides,
                               padding=(kernel_size - 1) // 2, bias=False)
         self.bn = BatchNormMixed(features, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.conv2d(x.to(self.dtype), self.conv.weight.to(self.dtype),
-                     padding=self.conv.padding)
+                     stride=self.conv.stride, padding=self.conv.padding)
         return torch.relu(self.bn(x))
 
 
@@ -118,3 +121,49 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """2x nearest-neighbour upsample, NCHW."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def passthrough_reorg(x: torch.Tensor) -> torch.Tensor:
+    """YOLOv2's raw ``.view(b, 4c, h/2, w/2)`` passthrough (NCHW in and out).
+
+    Not a space-to-depth: the reference reinterprets the contiguous NCHW
+    buffer. The port's activations are NCHW tensors with channels_last
+    strides, on which ``.view`` raises or reads another order, so this
+    reshapes the logical NCHW shape (a copy, which is the semantics) and
+    returns it with channels_last strides again for the next conv."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c * 4, h // 2, w // 2)
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+class SeededDropout(nn.Module):
+    """Inverted dropout (flax ``nn.Dropout``: kept values scaled by
+    ``1 / (1 - rate)``) active in train mode only, its mask drawn from a
+    ``torch.Generator`` of its own on the input's device.
+
+    :meth:`reseed` seeds it; the train step calls it with the config's seed
+    and the step number, as ``podtpu`` folds the step into its dropout key,
+    so a resumed run draws the masks it would have drawn. Rate 0 returns
+    the input, as flax does."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.seed = 0
+        self._gens: dict = {}  # device -> torch.Generator
+
+    def reseed(self, seed: int):
+        self.seed = int(seed)
+        for g in self._gens.values():
+            g.manual_seed(self.seed)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        gen = self._gens.get(x.device)
+        if gen is None:
+            gen = self._gens[x.device] = torch.Generator(device=x.device)
+            gen.manual_seed(self.seed)
+        keep = torch.empty(x.shape, device=x.device).bernoulli_(
+            1.0 - self.rate, generator=gen).bool()
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)

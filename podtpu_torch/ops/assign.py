@@ -1,5 +1,5 @@
 """YOLO target assignment on the device (``podtpu/ops/assign.py``, the dense
-backend of ``encode_anchor_targets``).
+backends of ``encode_anchor_targets`` and ``encode_yolov1_targets``).
 
 Ground truth -> grid targets with the reference's write order, and no
 sequential loop:
@@ -11,7 +11,9 @@ sequential loop:
 * v3: a GT contributes to a layer only when its globally-best anchor (over
   all 9, matched in input pixels) belongs to that layer's triplet;
 * the noobj ignore mask is an OR over annotations, again an ``amax``
-  scatter.
+  scatter;
+* v1: the FIRST GT in a cell wins (the reference's loop skips occupied
+  cells), an ``amin`` scatter of the annotation order.
 
 ``podtpu`` selects the owner's values and the ignore mask with one-hot
 matmuls, which suit the TPU's matrix unit; here gathers and integer
@@ -164,4 +166,49 @@ def encode_anchor_targets(
         tbox=vals[..., :4].reshape(grid + (4,)),
         tconf=mask.reshape(grid),
         tcls=tcls.reshape(grid + (num_classes,)),
+    )
+
+
+class Yolov1Targets(NamedTuple):
+    mask: torch.Tensor  # [B, S, S] 1 where the cell holds a GT
+    tbox: torch.Tensor  # [B, S, S, 4]: (x_off, y_off, w_norm, h_norm)
+    tcls: torch.Tensor  # [B, S, S, C] one-hot
+
+
+def encode_yolov1_targets(target: torch.Tensor, num_classes: int,
+                          grid_size: int = 7) -> Yolov1Targets:
+    """YOLOv1 grid encoding: the first GT of a cell wins; w/h stay
+    normalized to the image (the reference stores them raw). Bit-identical
+    to ``podtpu``'s ``dense`` and ``scan`` backends."""
+    dev = target.device
+    target = target.float()
+    b, t, _ = target.shape
+    s = grid_size
+    valid = target.sum(dim=-1) > 0.0  # [B, T]
+
+    gx = target[..., 0] * s
+    gy = target[..., 1] * s
+    gi = gx.to(torch.int64).clamp(0, s - 1)  # truncates toward 0
+    gj = gy.to(torch.int64).clamp(0, s - 1)
+    cid = target[..., 4].to(torch.int64).clamp(0, num_classes - 1)
+    tbox_gt = torch.stack([gx - gi.float(), gy - gj.float(),
+                           target[..., 2], target[..., 3]], dim=-1)
+    c_idx = torch.arange(num_classes, device=dev)
+    tcls_gt = (cid[..., None] == c_idx).float()             # [B, T, C]
+
+    # cell owner: the lowest annotation order writing it (t + 1 = none)
+    cell = gj * s + gi                                      # [B, T]
+    order = torch.where(valid, torch.arange(1, t + 1, device=dev), t + 1)
+    winner = torch.full((b, s * s), t + 1, dtype=torch.int64, device=dev)
+    winner.scatter_reduce_(1, cell, order, "amin")
+    mask = (winner <= t).float()
+    idx = (winner - 1).clamp(0, t - 1)
+    feats = torch.cat([tbox_gt, tcls_gt], dim=-1)          # [B, T, 4+C]
+    vals = torch.gather(feats, 1,
+                        idx[..., None].expand(-1, -1, 4 + num_classes))
+    vals = vals * mask[..., None]
+    return Yolov1Targets(
+        mask=mask.reshape(b, s, s),
+        tbox=vals[..., :4].reshape(b, s, s, 4),
+        tcls=vals[..., 4:].reshape(b, s, s, num_classes),
     )

@@ -1,9 +1,10 @@
 """Vectorized YOLO grid decoding (``podtpu/ops/decode.py``).
 
-Heads are NHWC ([B, H, W, A*(5+C)]); the flattened candidate order is
-[H, W, A], as in ``podtpu``. Outputs are [B, H*W*A, 6] rows of
+Anchor heads are NHWC ([B, H, W, A*(5+C)]); the flattened candidate order
+is [H, W, A], as in ``podtpu``. Outputs are [B, N, 6] rows of
 ``[cx, cy, w, h, conf, class_idx]`` in input-pixel scale, single-label
-class via argmax.
+class via argmax; every argmax keeps the first of equal maxima, as
+``jnp.argmax`` does.
 """
 
 from __future__ import annotations
@@ -85,3 +86,38 @@ def decode_yolov3(preds, num_classes: int, anchors, input_size: int,
     outs = [decode_anchor_head(pred, num_classes, a, input_size)
             for pred, a in zip(preds, anchors_grid)]
     return torch.cat(outs, dim=1)
+
+
+def decode_yolov2(pred: torch.Tensor, num_classes: int,
+                  anchors_grid: torch.Tensor, input_size: int) -> torch.Tensor:
+    """YOLOv2: the single 13x13 head; ``anchors_grid`` [A, 2] float32 are
+    the config's ``scaled_anchors`` (already grid units) on ``pred``'s
+    device."""
+    return decode_anchor_head(pred, num_classes, anchors_grid, input_size)
+
+
+def decode_yolov1(pred: torch.Tensor, num_classes: int, num_boxes: int,
+                  input_size: int, grid_size: int = 7) -> torch.Tensor:
+    """YOLOv1: the [B, S*S*(5*NB+C)] fully-connected head -> [B, S*S, 6].
+
+    Per cell, the box of the best sigmoided confidence (the first on a tie:
+    at random weights saturated sigmoids tie); w/h are normalized to the
+    whole image. The class is the argmax of the sigmoided class scores, as
+    ``podtpu`` takes it (equal logits may round to one sigmoid)."""
+    s = grid_size
+    b = pred.shape[0]
+    p = torch.sigmoid(pred.float().reshape(b, s, s, num_boxes * 5
+                                           + num_classes))
+    stride = input_size / s
+
+    boxes = p[..., num_classes:].reshape(b, s, s, num_boxes, 5)  # conf, xywh
+    best = torch.argmax(boxes[..., 0], dim=-1, keepdim=True)    # [B, S, S, 1]
+    pick = torch.gather(boxes, 3, best[..., None].expand(-1, -1, -1, 1, 5))
+    pconf, pbox = pick[..., 0, 0:1], pick[..., 0, 1:5]
+
+    grid = _grid_xy(s, s, device=pred.device)
+    pxy = (pbox[..., 0:2] + grid) * stride
+    pwh = pbox[..., 2:4] * float(s) * stride
+    pcls = torch.argmax(p[..., :num_classes], dim=-1, keepdim=True).float()
+    out = torch.cat([pxy, pwh, pconf, pcls], dim=-1)
+    return out.reshape(b, s * s, 6)

@@ -20,8 +20,13 @@ from typing import Callable
 import torch
 
 from podtpu_torch.losses import build_loss
-from podtpu_torch.models.layers import BatchNormMixed
-from podtpu_torch.ops.decode import decode_yolov3, layer_anchors
+from podtpu_torch.models.layers import BatchNormMixed, SeededDropout
+from podtpu_torch.ops.decode import (
+    decode_yolov1,
+    decode_yolov2,
+    decode_yolov3,
+    layer_anchors,
+)
 from podtpu_torch.ops.nms import batched_class_aware_nms
 
 
@@ -34,13 +39,30 @@ def _as_input(img: torch.Tensor) -> torch.Tensor:
 
 
 def make_decoder(cfg: dict) -> Callable:
-    """Config -> fn(raw head outputs) -> [B, N, 6] candidates."""
+    """Config -> fn(raw head output(s)) -> [B, N, 6] candidates: one tensor
+    for yolov1 and yolov2, the tuple of three heads for yolov3."""
     name = cfg["model"]
+    num_classes = cfg["num_classes"]
+    input_size = cfg["input_size"]
+    if name == "yolov1":
+        num_boxes = cfg["num_boxes"]
+        return lambda pred: decode_yolov1(pred, num_classes, num_boxes,
+                                          input_size)
+    if name == "yolov2":
+        scaled = cfg["scaled_anchors"]
+        on_device: dict = {}  # device -> the anchors as a tensor there
+
+        def decode_v2(pred):
+            if pred.device not in on_device:
+                on_device[pred.device] = torch.tensor(
+                    scaled, dtype=torch.float32, device=pred.device)
+            return decode_yolov2(pred, num_classes, on_device[pred.device],
+                                 input_size)
+
+        return decode_v2
     if name != "yolov3":
         raise NotImplementedError(f"decoding '{name}' is not ported yet "
                                   "(ROADMAP.md queue 1, other families)")
-    num_classes = cfg["num_classes"]
-    input_size = cfg["input_size"]
     anchors = cfg["anchors"]
     cache: dict = {}  # (device, layer shapes) -> per-layer grid anchors
 
@@ -59,6 +81,9 @@ def _decoder_and_nms(cfg: dict) -> tuple[Callable, Callable]:
     """The two halves of the deployment postprocess: raw preds -> [B, N, 6]
     candidates, and candidates -> padded NMS survivors."""
     nopts = cfg.get("nms_options") or {}
+    if cfg["model"] == "yolov1" and nopts.get("multi_label"):
+        raise ValueError("multi_label needs per-box class scores; the "
+                         "yolov1 head predicts one class set per cell")
     unported = [k for k in ("multi_label", "merge", "agnostic", "classes",
                             "backend") if nopts.get(k)]
     if unported:
@@ -208,10 +233,16 @@ def make_train_step(cfg: dict) -> Callable:
         raise NotImplementedError(f"{unported} not ported yet (ROADMAP.md "
                                   "queue 1, train-step options)")
     loss_fn = build_loss(cfg)
+    seed = int(cfg.get("seed", 0))
 
     def train_step(state, batch):
         model = state.model
         model.train()
+        # dropout masks from (seed, step), as podtpu folds the step into
+        # its dropout key: a resumed run draws the masks it would have
+        for m in model.modules():
+            if isinstance(m, SeededDropout):
+                m.reseed((seed << 32) + state.step)
         preds = model(_as_input(batch["img"]))
         loss = loss_fn(preds, batch["annot"])
         state.optimizer.zero_grad(set_to_none=True)

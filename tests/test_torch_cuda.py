@@ -44,6 +44,7 @@ def _offset_boxes(rng, b, k):
     (4, 300, False), (4, 513, False),     # ragged last word
     (8, 512, True),                       # nothing valid: the scan ends at once
     (1, 512, False), (1, 512, True),      # the per-image CLIs' batch
+    (8, 49, False), (64, 49, False),      # YOLOv1: 7x7 cells, a partial word
 ])
 def test_suppress_kernel_matches_reference(cuda, b, k, none_valid):
     boxes, valid = _offset_boxes(np.random.default_rng(k + b), b, k)
@@ -104,7 +105,8 @@ def _rel(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,w", [(2, 64, 64), (2, 416, 416), (3, 40, 70)])
+@pytest.mark.parametrize("b,h,w", [(2, 64, 64), (2, 416, 416), (3, 40, 70),
+                                   (2, 448, 448)])  # YOLOv1: 14 column tiles
 def test_stem_kernels_match_plain_versions(cuda, dtype, b, h, w):
     """Each kernel against its plain version on the same operands: float32
     to 1e-4 of the result's scale (TF32 off for the plain conv); bf16 sums
@@ -284,3 +286,60 @@ def test_stats_step_launches_only_the_forward_kernels(cuda):
     assert not any(m.training for m in state.model.modules())
     for k, v in state.model.state_dict().items():
         assert torch.equal(v, before[k]), k
+
+
+_FAMILIES = {
+    "yolov1": dict(num_boxes=2, input_size=96),
+    "yolov2": dict(scaled_anchors=[[1.3221, 1.73145], [3.19275, 4.00944],
+                                   [5.05587, 8.09892], [9.47112, 4.84053],
+                                   [11.2364, 10.0071]], input_size=64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", sorted(_FAMILIES))
+def test_family_steps_launch_the_kernels(cuda, model):
+    """YOLOv1 and YOLOv2 in bf16: each train step launches every stem
+    kernel once; the serving graph launches suppression once a batch, and
+    its keep masks on the family's own candidates equal the plain
+    version's."""
+    from podtpu_torch.data.loader import pad_annotations
+    from podtpu_torch.ops.nms import _select_candidates
+    from podtpu_torch.train.state import create_train_state
+    from podtpu_torch.train.steps import make_decoder, make_serve_fn
+    from podtpu_torch.train.steps import make_train_step
+
+    cfg = dict(model=model, num_classes=20, compute_dtype="bfloat16",
+               optimizer="sgd", optimizer_options={
+                   "lr": 1e-3, "momentum": 0.9, "nesterov": True,
+                   "weight_decay": 5e-3}, **_FAMILIES[model])
+    size = cfg["input_size"]
+    state = create_train_state(cfg, cuda)
+    r = np.random.default_rng(0)
+    img = torch.from_numpy(r.integers(0, 256, (2, size, size, 3),
+                                      dtype=np.uint8)).to(cuda)
+    batch = {"img": img, "annot": torch.from_numpy(pad_annotations(
+        [np.array([[0.5, 0.5, 0.3, 0.4, 3]], np.float32)] * 2, 8)).to(cuda)}
+    before = dict(sk.stem_fused.launches)
+    step = make_train_step(cfg)
+    for _ in range(2):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(m["loss"])
+    assert {k: v - before[k] for k, v in sk.stem_fused.launches.items()} == {
+        k: 2 for k in before}
+
+    model_ = state.model.eval()
+    launches = greedy_suppress.launches
+    x = img.float() / 255.0
+    dets, valid = make_serve_fn(cfg, model_)(x)
+    torch.cuda.synchronize()
+    assert greedy_suppress.launches == launches + 1
+    assert dets.device.type == "cuda" and torch.isfinite(dets).all()
+    with torch.inference_mode():
+        _, ok, boxes = _select_candidates(make_decoder(cfg)(model_(x)), 0.25,
+                                          512)
+        boxes = boxes.contiguous()
+        assert boxes.shape[1] == (49 if model == "yolov1" else 20)
+        assert torch.equal(greedy_suppress(boxes, ok, 0.45),
+                           greedy_suppress_reference(boxes, ok, 0.45))

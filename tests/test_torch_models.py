@@ -108,8 +108,7 @@ def test_weights_shape_mismatch_raises(flat):
         load_flat_weights(build_model(yolo_cfg(), device="cpu"), bad)
 
 
-@pytest.mark.parametrize("model", ["yolov1", "yolov2", "yolov4-tiny",
-                                   "yolov4", "retinanet"])
+@pytest.mark.parametrize("model", ["yolov4-tiny", "yolov4", "retinanet"])
 def test_unported_families_raise(model):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(yolo_cfg(model=model), device="cpu")

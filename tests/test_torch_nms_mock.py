@@ -131,6 +131,19 @@ def _case(name):
         _, valid, boxes = _select_candidates(torch.from_numpy(cand), 0.25, 512)
         assert float(boxes.abs().max()) > 2.5e5
         return boxes.contiguous(), valid
+    if name in ("yolov1_K49", "yolov2_K512_of_845"):
+        # what the serving path hands the kernels for these heads: 7x7
+        # cells of one box each (K = 49, a partial word), or 13x13x5
+        # candidates cut to the top 512
+        n, size = (49, 448) if name == "yolov1_K49" else (845, 416)
+        cand = np.zeros((4, n, 6), np.float32)
+        cand[..., 0:2] = rng.uniform(0, size, (4, n, 2))
+        cand[..., 2:4] = rng.uniform(16, 240, (4, n, 2))
+        cand[..., 4] = rng.uniform(0, 1, (4, n))
+        cand[..., 5] = rng.integers(0, 3, (4, n))
+        _, valid, boxes = _select_candidates(torch.from_numpy(cand), 0.25, 512)
+        assert boxes.shape == (4, min(n, 512), 4)
+        return boxes.contiguous(), valid
     if name == "chain_within_a_word":
         boxes = _sliding(64)
         return boxes, torch.ones((1, 64), dtype=torch.bool)
@@ -152,6 +165,7 @@ CASES = ["random_K1", "random_K63", "random_K64", "random_K65",
          "no_valid_box", "one_image_K512", "one_image_no_valid",
          "ragged_prefix",
          "scattered_valid", "class_offsets_data_stride",
+         "yolov1_K49", "yolov2_K512_of_845",
          "chain_within_a_word", "chain_across_words", "dense_cluster"]
 
 
@@ -169,7 +183,7 @@ def test_mocked_keep_masks_equal_reference(lib, name):
         # A removes B, B would have removed C: C is kept
         assert got[0, 0::2].all() and not got[0, 1::2].any()
     if name in ("random_K512", "dense_cluster", "class_offsets_data_stride",
-                "one_image_K512"):
+                "one_image_K512", "yolov1_K49", "yolov2_K512_of_845"):
         assert 0 < int(got.sum()) < int(valid.sum())  # something is removed
 
 

@@ -173,8 +173,7 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("cfg", [dict(tta=True),
                                  dict(nms_options={"merge": True}),
-                                 dict(nms_options={"multi_label": True}),
-                                 dict(model="yolov2")])
+                                 dict(nms_options={"multi_label": True})])
 def test_unported_serving_options_raise(cfg):
     with pytest.raises(NotImplementedError):
         make_serve_fn(yolo_cfg(**cfg), lambda x: x)

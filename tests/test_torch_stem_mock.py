@@ -27,7 +27,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "podtpu_torch", "csrc", "stem_fused.cu")
 MOCK = os.path.join(ROOT, "tools", "cuda_mock")
 ROWS = 16        # rows of the partial-sum buffer: more than the mock's grid
-SHAPES = [(2, 16, 24), (3, 40, 70)]   # one tile per image; ragged 3 x 3 tiles
+# one tile per image; ragged 3 x 3 tiles; 448 px wide (YOLOv1): 14 column
+# tiles of 16 pooled columns
+SHAPES = [(2, 16, 24), (3, 40, 70), (1, 16, 448)]
 # sums then dW of the two backward kernels on _saved_case(), from the mocked
 # kernels as they stood before the conv core became functions of its own
 SAVED_BWD = os.path.join(ROOT, "tests", "test_torch_stem_mock_bwd.npy")
