@@ -11,13 +11,13 @@ from podtpu_torch.losses.yolov2 import yolov2_loss_v2
 from podtpu_torch.losses.yolov3 import yolov3_loss_v2
 
 # families of podtpu's build_loss that the port does not build yet
-_LATER = ("yolov4", "yolov4-tiny", "retinanet")
+_LATER = ("retinanet",)
 
 
 def build_loss(cfg: dict) -> Callable:
     """Config -> ``loss(preds, annots) -> scalar``, as ``podtpu`` wires it:
     ``yolov1_loss`` for yolov1, ``yolov2_loss_v2`` for yolov2 and
-    ``yolov3_loss_v2`` for yolov3."""
+    ``yolov3_loss_v2`` for yolov3, yolov4-tiny and yolov4."""
     name = cfg["model"]
     if name in _LATER:
         raise NotImplementedError(f"the '{name}' loss is not ported yet "
@@ -32,7 +32,7 @@ def build_loss(cfg: dict) -> Callable:
 
         def family_loss(preds, annots, anchors_t):
             return yolov2_loss_v2(preds, annots, num_classes, anchors_t)
-    elif name == "yolov3":
+    elif name in ("yolov3", "yolov4-tiny", "yolov4"):
         anchors, input_size = cfg["anchors"], cfg["input_size"]
 
         def family_loss(preds, annots, anchors_t):

@@ -8,6 +8,8 @@ from podtpu_torch import resolve_device
 from podtpu_torch.models.yolov1 import YoloV1
 from podtpu_torch.models.yolov2 import YoloV2
 from podtpu_torch.models.yolov3 import YoloV3
+from podtpu_torch.models.yolov4 import YoloV4
+from podtpu_torch.models.yolov4_tiny import YoloV4Tiny
 
 _DTYPES = {
     "float32": torch.float32,
@@ -15,7 +17,7 @@ _DTYPES = {
 }
 
 # families of podtpu's factory that the port does not build yet
-_LATER = ("yolov4-tiny", "yolov4", "retinanet")
+_LATER = ("retinanet",)
 
 
 def compute_dtype(cfg: dict) -> torch.dtype:
@@ -47,6 +49,10 @@ def build_model(cfg: dict, device: str | torch.device | None = None,
         model = YoloV2(num_anchors=len(cfg["scaled_anchors"]), **kw)
     elif name == "yolov3":
         model = YoloV3(num_anchors=len(cfg["anchors"]), **kw)
+    elif name == "yolov4-tiny":
+        model = YoloV4Tiny(num_anchors=len(cfg["anchors"]), **kw)
+    elif name == "yolov4":
+        model = YoloV4(num_anchors=len(cfg["anchors"]), **kw)
     else:
         raise ValueError(f"unknown model '{name}'")
     return model.to(resolve_device(device)).train(train)

@@ -14,6 +14,8 @@ NCHW, which is a ``channels_last`` view, so cuDNN keeps that layout). As in
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -80,15 +82,20 @@ class BatchNormMixed(nn.Module):
 
 
 class ConvBnAct(nn.Module):
-    """Conv2d(pad=(k-1)//2 on both sides, bias=False) + BatchNorm + ReLU.
+    """Conv2d(pad=(k-1)//2 on both sides, bias=False) + BatchNorm + ``act``
+    (ReLU by default; ``None`` is linear).
 
     ``podtpu`` pads symmetrically, so a stride-2 conv is torch's
-    ``padding=p, stride=2`` and not a ``'same'`` one."""
+    ``padding=p, stride=2`` and not a ``'same'`` one. As in ``podtpu``, the
+    activation takes the BN output in the compute dtype and its result is
+    cast to it."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
-                 dtype: torch.dtype = torch.float32, strides: int = 1):
+                 dtype: torch.dtype = torch.float32, strides: int = 1,
+                 act: Callable | None = torch.relu):
         super().__init__()
         self.dtype = dtype
+        self.act = act
         self.conv = nn.Conv2d(in_ch, features, kernel_size, stride=strides,
                               padding=(kernel_size - 1) // 2, bias=False)
         self.bn = BatchNormMixed(features, dtype=dtype)
@@ -96,7 +103,36 @@ class ConvBnAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.conv2d(x.to(self.dtype), self.conv.weight.to(self.dtype),
                      stride=self.conv.stride, padding=self.conv.padding)
-        return torch.relu(self.bn(x))
+        x = self.bn(x)
+        if self.act is not None:
+            x = self.act(x)
+        return x.to(self.dtype)
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """x * tanh(softplus(x)), CSPDarknet53's activation (``jax.nn.mish``)."""
+    return F.mish(x)
+
+
+def leaky01(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.1), yolov4.cfg's neck and head activation."""
+    return F.leaky_relu(x, negative_slope=0.1)
+
+
+class V4TinyBlock(nn.Module):
+    """CSP-tiny partial block: 3x3 -> 3x3 -> concat [second, first] ->
+    1x1 to twice the width."""
+
+    def __init__(self, in_ch: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv1 = ConvBnAct(in_ch, features, 3, dtype=dtype)
+        self.conv2 = ConvBnAct(features, features, 3, dtype=dtype)
+        self.conv3 = ConvBnAct(2 * features, 2 * features, 1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv1(x)
+        return self.conv3(torch.cat([self.conv2(y), y], dim=1))
 
 
 class HeadConv(nn.Module):

@@ -61,7 +61,7 @@ def train(cfg: dict, resume: str | None = None, epochs: int | None = None,
     return trainer
 
 
-def main():
+def main(argv=None) -> Trainer:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cfg", required=True, type=str, help="experiment yaml")
     ap.add_argument("--resume", type=str, default=None, help="checkpoint dir")
@@ -69,9 +69,9 @@ def main():
                     help="override cfg epochs")
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default cuda; cpu for local runs)")
-    args = ap.parse_args()
-    train(get_configs(args.cfg), resume=args.resume, epochs=args.epochs,
-          device=args.device)
+    args = ap.parse_args(argv)
+    return train(get_configs(args.cfg), resume=args.resume,
+                 epochs=args.epochs, device=args.device)
 
 
 if __name__ == "__main__":

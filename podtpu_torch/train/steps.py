@@ -2,7 +2,9 @@
 
 * ``make_train_step``: train-mode forward (the fused stem's kernels on the
   card), target encoding and loss, backward and the optimizer update, all
-  on the batch's device.
+  on the batch's device; ``make_multi_train_step``: K of them over a
+  stacked group of batches with no host synchronisation between them
+  (cfg ``steps_per_dispatch``).
 * ``make_serve_fn``: image batch -> detections. The whole postprocess stays
   on the batch's device: decode + padded NMS (whose suppression is the
   CUDA kernel on the card); only the [B, max_det, 6] survivors leave it.
@@ -40,7 +42,8 @@ def _as_input(img: torch.Tensor) -> torch.Tensor:
 
 def make_decoder(cfg: dict) -> Callable:
     """Config -> fn(raw head output(s)) -> [B, N, 6] candidates: one tensor
-    for yolov1 and yolov2, the tuple of three heads for yolov3."""
+    for yolov1 and yolov2, the tuple of three heads for yolov3, yolov4-tiny
+    and yolov4 (all three through ``decode_yolov3``)."""
     name = cfg["model"]
     num_classes = cfg["num_classes"]
     input_size = cfg["input_size"]
@@ -60,7 +63,7 @@ def make_decoder(cfg: dict) -> Callable:
                                  input_size)
 
         return decode_v2
-    if name != "yolov3":
+    if name not in ("yolov3", "yolov4-tiny", "yolov4"):
         raise NotImplementedError(f"decoding '{name}' is not ported yet "
                                   "(ROADMAP.md queue 1, other families)")
     anchors = cfg["anchors"]
@@ -218,6 +221,16 @@ def make_stats_step(cfg: dict) -> Callable:
     return stats_step
 
 
+# cfg options of podtpu's train step that the port does not run yet
+_UNPORTED_STEP = {
+    "device_augment": "item 8: device augmentation",
+    "device_geom": "item 8: device augmentation",
+    "remat_policy": "item 6: train-step options",
+    "remat_backbone": "item 6: train-step options",
+    "ema": "item 6: train-step options",
+}
+
+
 def make_train_step(cfg: dict) -> Callable:
     """``(state, batch) -> (state, {"loss"})`` for a
     :class:`podtpu_torch.train.state.TrainState`, updated in place.
@@ -225,13 +238,11 @@ def make_train_step(cfg: dict) -> Callable:
     ``batch``: ``{"img": [B, H, W, 3] uint8 or float, "annot": [B, T, 5]}``
     on the model's device. The BN running statistics move in the forward,
     from the batch statistics of the parameters before the update."""
-    unported = [k for k in ("device_augment", "device_geom", "remat_policy",
-                            "remat_backbone", "ema") if cfg.get(k)]
-    if int(cfg.get("steps_per_dispatch") or 1) > 1:
-        unported.append("steps_per_dispatch")
+    unported = [k for k in _UNPORTED_STEP if cfg.get(k)]
     if unported:
-        raise NotImplementedError(f"{unported} not ported yet (ROADMAP.md "
-                                  "queue 1, train-step options)")
+        raise NotImplementedError(
+            f"{unported} not ported yet (ROADMAP.md queue 1, "
+            + "; ".join(sorted({_UNPORTED_STEP[k] for k in unported})) + ")")
     loss_fn = build_loss(cfg)
     seed = int(cfg.get("seed", 0))
 
@@ -251,3 +262,28 @@ def make_train_step(cfg: dict) -> Callable:
         return state, {"loss": loss.detach()}
 
     return train_step
+
+
+def make_multi_train_step(cfg: dict) -> Callable:
+    """K train steps in one call (cfg ``steps_per_dispatch: K``):
+    ``(state, batches) -> (state, {"loss": [K]})`` over a ``[K, B, ...]``
+    stacked group of batches already on the model's device.
+
+    The semantics are those of K sequential ``train_step`` calls on the
+    same batches: each step sets the schedule's lr for its own update and
+    advances the step counter, and the BN running statistics move in each
+    forward. The losses stay on the device: nothing in the group waits for
+    the card, so the host queues all K steps and is free for the next
+    group's batches. (``podtpu`` scans the steps in one compiled program;
+    here each step's kernels are queued as the single step queues them.)"""
+    step = make_train_step(cfg)
+
+    def multi_step(state, batches):
+        k = int(next(iter(batches.values())).shape[0])
+        losses = []
+        for i in range(k):
+            state, m = step(state, {name: v[i] for name, v in batches.items()})
+            losses.append(m["loss"])
+        return state, {"loss": torch.stack(losses)}
+
+    return multi_step

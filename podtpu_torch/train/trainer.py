@@ -3,7 +3,10 @@ analog of the reference's Lightning stack (pl.Trainer + callbacks,
 train_yolov3.py:50-74):
 
 * the train step per batch (loss logged as ``train_loss``), losses kept on
-  the device and reduced once an epoch;
+  the device and reduced once an epoch; with cfg ``steps_per_dispatch: K``
+  a group of K batches is stacked, copied to the device at once and run
+  by ``make_multi_train_step``, the ragged tail of an epoch by the single
+  step;
 * validation every ``check_val_every_n_epoch`` epochs -> ``val_loss`` +
   ``val_mAP`` (module/yolov3_detector.py:33-47);
 * checkpoints (``torch.save`` of the model's and the optimizer's
@@ -39,6 +42,7 @@ from podtpu_torch.metrics import MeanAveragePrecision
 from podtpu_torch.train.state import TrainState, create_train_state, param_count
 from podtpu_torch.train.steps import (
     make_eval_step,
+    make_multi_train_step,
     make_stats_step,
     make_train_step,
 )
@@ -210,6 +214,22 @@ def restore_eval_weights(path: str, state: TrainState, cfg: dict,
     return restore_weights(path, state, use_ema=bool(use_ema))
 
 
+def put_group(batches: list[dict], device: torch.device) -> dict:
+    """K host batches as ``[K, B, ...]`` tensors on ``device``: each key
+    stacked once on the host, into pinned memory when the device is a
+    card, and copied over in one non-blocking transfer."""
+    pin = device.type == "cuda"
+    out = {}
+    for k in batches[0]:
+        first = np.asarray(batches[0][k])
+        host = torch.empty((len(batches),) + first.shape,
+                           dtype=torch.from_numpy(first).dtype,
+                           pin_memory=pin)
+        np.stack([b[k] for b in batches], out=host.numpy())
+        out[k] = host.to(device, non_blocking=pin)
+    return out
+
+
 # cfg options of podtpu's Trainer that the port does not run yet
 _UNPORTED = {
     "ema": "item 6: train-step options",
@@ -223,10 +243,6 @@ class Trainer:
                  device: str | torch.device | None = None,
                  eval_only: bool = False):
         unported = [k for k in _UNPORTED if cfg.get(k)]
-        if int(cfg.get("steps_per_dispatch") or 1) > 1:
-            raise NotImplementedError("steps_per_dispatch > 1 is not ported "
-                                      "yet (ROADMAP.md queue 1, item 6: "
-                                      "train-step options)")
         if unported:
             raise NotImplementedError(
                 f"{unported} not ported yet (ROADMAP.md queue 1, "
@@ -239,6 +255,11 @@ class Trainer:
             torch.manual_seed(int(cfg.get("seed", 0)))
             self.state = create_train_state(cfg, self.device)
         self.train_step = make_train_step(cfg)
+        # cfg ``steps_per_dispatch: K``: K optimizer steps a call over a
+        # stacked group of K batches; ragged epoch tails run the single step
+        self._spd = max(1, int(cfg.get("steps_per_dispatch") or 1))
+        self.multi_step = (make_multi_train_step(cfg)
+                           if self._spd > 1 and not eval_only else None)
         self.eval_step = make_eval_step(cfg)
         self.map_metric = MeanAveragePrecision(
             cfg["num_classes"], cfg["input_size"]
@@ -329,11 +350,21 @@ class Trainer:
                 losses = []  # device scalars: one sync an epoch
                 t_epoch = time.time()
                 n_images = 0
+                pending = []  # host batches buffered for one K-step group
                 for i, batch in enumerate(train_loader):
                     n_images += batch.pop("n_valid", batch["img"].shape[0])
-                    self.state, metrics = self.train_step(
-                        self.state, self._put(batch))
-                    losses.append(metrics["loss"])
+                    if self.multi_step is not None:
+                        pending.append(batch)
+                        if len(pending) < self._spd:
+                            continue
+                        self.state, metrics = self.multi_step(
+                            self.state, put_group(pending, self.device))
+                        pending = []
+                        losses.extend(metrics["loss"].unbind(0))
+                    else:
+                        self.state, metrics = self.train_step(
+                            self.state, self._put(batch))
+                        losses.append(metrics["loss"])
                     if preempt.is_set():
                         break
                     if progress and (i % 10 == 9 or i + 1 == steps_per_epoch):
@@ -343,6 +374,12 @@ class Trainer:
                             f"\repoch {epoch}: {i + 1}/{steps_per_epoch} "
                             f"loss={float(losses[-1]):.4g} {rate:.1f} img/s   ")
                         sys.stdout.flush()
+                # ragged tail (< K batches left, or a preempt mid-group):
+                # the single step, so that no sample is lost
+                for batch in pending:
+                    self.state, metrics = self.train_step(
+                        self.state, self._put(batch))
+                    losses.append(metrics["loss"])
                 if progress:
                     sys.stdout.write("\r\033[K")
                 if preempt.is_set():

@@ -483,8 +483,7 @@ def test_early_stopping_counts_validation_rounds(synth, tmp_path,
 
 
 @pytest.mark.parametrize("extra", [
-    {"steps_per_dispatch": 2}, {"ema": {"decay": 0.999}},
-    {"async_checkpoint": True},
+    {"ema": {"decay": 0.999}}, {"async_checkpoint": True},
 ], ids=lambda e: next(iter(e)))
 def test_unported_trainer_options_raise(synth, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):

@@ -30,14 +30,22 @@ def yolo_cfg(dtype: str = "float32", size: int = 64, **extra) -> dict:
 
 
 def podtpu_flat_weights(cfg: dict, seed: int = 0) -> dict[str, np.ndarray]:
-    """Seeded weights in podtpu's flat layout: He-normal kernels (so
-    activations keep their scale through the depth and heads spread), and
-    non-trivial BN affine and running statistics."""
+    """Seeded weights in podtpu's flat layout for ``cfg``'s model at its
+    input size (:func:`module_flat_weights`)."""
     from podtpu.models.factory import build_model
 
     size = cfg["input_size"]
-    shapes = jax.eval_shape(build_model(cfg).init, jax.random.PRNGKey(0),
-                            jnp.zeros((1, size, size, 3), jnp.float32))
+    return module_flat_weights(build_model(cfg),
+                               jnp.zeros((1, size, size, 3), jnp.float32),
+                               seed)
+
+
+def module_flat_weights(module, x, seed: int = 0) -> dict[str, np.ndarray]:
+    """Seeded weights in podtpu's flat layout for a Flax ``module`` applied
+    to ``x``: He-normal kernels (so activations keep their scale through
+    the depth and heads spread), and non-trivial BN affine and running
+    statistics."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), x)
     rng = np.random.default_rng(seed)
     flat = {}
     for coll in ("params", "batch_stats"):

@@ -5,7 +5,7 @@ forward at batch 1, so nothing is computed or allocated).
 
     python3 tools/model_flops.py [configs/yolov3_voc.yaml ...]
 
-Without arguments: the three configs the port builds at full size.
+Without arguments: the five configs the port builds at full size.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from podtpu_torch.config import get_configs  # noqa: E402
 from podtpu_torch.models.factory import build_model  # noqa: E402
 
 DEFAULT = [os.path.join(REPO, "configs", f"{m}_voc.yaml")
-           for m in ("yolov3", "yolov2", "yolov1")]
+           for m in ("yolov3", "yolov2", "yolov1", "yolov4-tiny", "yolov4")]
 
 
 def forward_flops(cfg: dict) -> tuple[int, int]:
