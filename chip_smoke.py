@@ -115,7 +115,22 @@ raising on failure:
    (YOLOv4-tiny through ``cli.train_yolov4_tiny`` at B=14: one group of 8
    and a ragged step; YOLOv4 through ``train.run`` at B=32) and
    ``cli.test_yolov4_tiny`` / ``cli.test`` on its ``best`` (the same
-   val_loss and val_mAP), the checkpoints deleted.
+   val_loss and val_mAP), the checkpoints deleted;
+14. retinanet: ``configs/retinanet_voc.yaml`` unchanged (RetinaNet-
+   ResNet50, 512 px, bf16, 20 classes, B=32, ``clip_grad_norm: 10``),
+   seeded weights carried in through the weight loader (every bias N(0,
+   0.1), so the class prior is gone and K = 512 is full at B=8): serving
+   as phase 12 (suppression once a dispatch, no stem launch; keep masks on
+   the model's own candidates, K = 512 of 49,104, bit-equal at B=8 and 64
+   and timed beside the bound); the train step (3 warm-up and 10 timed
+   steps, no stem launch, no CPU tensor, no host synchronisation under
+   ``torch.cuda.set_sync_debug_mode("error")``, BN statistics moving, the
+   forward / targets + loss / backward / clip + optimizer split with the
+   targets alone and the loss's own peak memory, and a step with a
+   planted gradient whose norm the clip brings to 10); a 64 px float32
+   model on the card against the CPU (heads, detections, loss); one epoch
+   from phase 9's files through ``train.run`` at B=32 and ``cli.test`` on
+   its ``best`` (the same val_loss and val_mAP), the checkpoints deleted.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -211,13 +226,14 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def random_weights(model, seed: int) -> dict[str, np.ndarray]:
     """Seeded weights in podtpu's flat layout for ``model``'s keys:
-    He-normal kernels, non-trivial BN affine and running statistics."""
-    from podtpu_torch.export.weights import flat_key
+    He-normal kernels, non-trivial BN affine and running statistics, every
+    bias N(0, 0.1) (RetinaNet's class prior included)."""
+    from podtpu_torch.export.weights import conv_paths, flat_key
 
     rng = np.random.default_rng(seed)
-    flat = {}
+    flat, convs = {}, conv_paths(model)
     for name, t in model.state_dict().items():
-        key, shape = flat_key(name), tuple(t.shape)
+        key, shape = flat_key(name, convs), tuple(t.shape)
         if key.endswith("kernel") and len(shape) == 4:  # HWIO
             o, i, kh, kw = shape
             arr = rng.normal(0.0, np.sqrt(2.0 / (i * kh * kw)), (kh, kw, i, o))
@@ -1897,34 +1913,41 @@ def family_serving(cfg, flat, dev, rng, k_own):
     return checks, record, launches, suppress["B8"]
 
 
-def card_vs_cpu(cfg, size, seed, rng, dev, rel_tol=None):
+def card_vs_cpu(cfg, size, seed, rng, dev, rel_tol=None, annot=None):
     """``cfg``'s model at ``size`` px in float32 on the card against the
-    same on the CPU (TF32 off): the heads and the detections. Returns (ok,
-    record). ``rel_tol`` (heads, detections): hold each to its own scale
-    (the largest value on the CPU) instead of 1e-3 and 1e-2 px, for a model
-    whose random-weight heads reach thousands."""
+    same on the CPU (TF32 off): the heads and the detections, and with
+    ``annot`` ([2, T, 5]) the loss. Returns (ok, record). ``rel_tol``
+    (heads, detections): hold each to its own scale (the largest value on
+    the CPU) instead of 1e-3 and 1e-2 px, for a model whose random-weight
+    heads reach thousands; the loss to 1e-4 relative."""
     from podtpu_torch.export.weights import load_flat_weights
+    from podtpu_torch.losses import build_loss
     from podtpu_torch.models.factory import build_model
     from podtpu_torch.train.steps import _as_input, _decoder_and_nms
 
     small = dict(cfg, input_size=size, compute_dtype="float32")
     sflat = random_weights(build_model(small, "cpu"), seed)
     x = rng.integers(0, 256, (2, size, size, 3), dtype=np.uint8)
-    outs = []
+    outs, losses = [], []
     for d in ("cpu", dev):
         m = load_flat_weights(build_model(small, d), sflat)
         dec, nms_d = _decoder_and_nms(small)
         with torch.inference_mode():
-            heads = m(_as_input(torch.from_numpy(x).to(d)))
-            dets = [t.cpu() for t in nms_d(dec(heads))]
-            heads = [heads] if torch.is_tensor(heads) else heads
-            outs.append(([h.cpu() for h in heads], dets))
+            raw = m(_as_input(torch.from_numpy(x).to(d)))
+            dets = [t.cpu() for t in nms_d(dec(raw))]
+            if annot is not None:
+                losses.append(float(build_loss(small)(
+                    raw, torch.from_numpy(annot).to(d))))
+            outs.append(([h.cpu() for h in tree_leaves(raw)], dets))
     (cpu_heads, (cpu_dets, cpu_valid)), (heads, (dets, valid)) = outs
     rec = {"input_size": size,
            "head_max_abs_err": max(float((a - b).abs().max())
                                    for a, b in zip(cpu_heads, heads)),
            "valid_equal": torch.equal(cpu_valid, valid),
            "det_max_abs_err": float((cpu_dets - dets).abs().max())}
+    if annot is not None:
+        rec.update(loss_cpu=losses[0], loss_card=losses[1],
+                   loss_rel_err=abs(losses[1] - losses[0]) / abs(losses[0]))
     if rel_tol is None:
         ok = (rec["head_max_abs_err"] <= 1e-3 and rec["valid_equal"]
               and rec["det_max_abs_err"] <= 1e-2)
@@ -1933,7 +1956,8 @@ def card_vs_cpu(cfg, size, seed, rng, dev, rel_tol=None):
                                 for a, b in zip(cpu_heads, heads)),
                det_rel_err=rel_err(dets, cpu_dets), rel_tol=list(rel_tol))
     ok = (rec["head_rel_err"] <= rel_tol[0] and rec["valid_equal"]
-          and rec["det_rel_err"] <= rel_tol[1])
+          and rec["det_rel_err"] <= rel_tol[1]
+          and rec.get("loss_rel_err", 0.0) <= 1e-4)
     return ok, rec
 
 
@@ -2360,6 +2384,219 @@ def v4_families_phase(fit, dev, card, tmp):
     return launches, suppress
 
 
+RETINA_CONFIG = "configs/retinanet_voc.yaml"
+
+
+def _grad_norm(model) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(
+        [p.grad.norm() for p in model.parameters() if p.grad is not None]))
+
+
+def retinanet_train(cfg, flat, dev, card):
+    """Phase 14's train step: ``configs/retinanet_voc.yaml`` unchanged
+    (B=32, clip_grad_norm 10) on a batch on the card: 3 warm-up steps, a
+    step watched for CPU tensors, a step under
+    ``torch.cuda.set_sync_debug_mode("error")``, 10 timed steps with the
+    kernel counters zeroed around them, the forward / targets + loss /
+    backward / clip + optimizer split with the targets alone and the
+    loss's own peak memory, and last a step with a planted gradient 1e4
+    times the raw one, whose global norm after the clip must be 10.
+    Returns (checks, record, launches of the timed steps)."""
+    from podtpu_torch.losses import build_loss
+    from podtpu_torch.ops.retina import anchors_on, assign_targets
+    from podtpu_torch.train.state import create_train_state
+    from podtpu_torch.train.steps import make_train_step
+
+    b, size = int(cfg["batch_size"]), int(cfg["input_size"])
+    if (b, cfg["max_annots"], cfg["optimizer"], cfg["scheduler"],
+            cfg["optimizer_options"].get("clip_grad_norm")) != (
+                32, 64, "sgd", "multi_step", 10.0):
+        raise AssertionError("configs/retinanet_voc.yaml is not the B=32 "
+                             "nesterov-SGD multi_step recipe with "
+                             "clip_grad_norm 10")
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(cfg, dev, weights=flat)
+    step = make_train_step(cfg)
+    r = np.random.default_rng(SEED + 51)
+    img = torch.from_numpy(r.random((b, size, size, 3), np.float32)).to(dev)
+    annot = torch.from_numpy(synthetic_annotations(cfg, b, SEED + 52)).to(dev)
+    batch = {"img": img, "annot": annot}
+    keys = ("backbone.stem.bn.running_mean", "backbone.stem.bn.running_var",
+            "backbone.stage4_block2.conv3.bn.running_var")
+    bns = {k: state.model.state_dict()[k].clone() for k in keys}
+    losses = []
+    for _ in range(3):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    spy = _CpuTensorSpy()
+    with spy:
+        state, m = step(state, batch)
+    losses.append(m["loss"])
+    torch.cuda.synchronize()
+    sync_error = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    except RuntimeError as e:  # a synchronising call inside the step
+        sync_error = str(e)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    _zero_counts()
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / iters
+    launches = _counts()
+    loss_vals = [float(v) for v in losses]
+    moved = {k: float((state.model.state_dict()[k] - v).abs().max())
+             for k, v in bns.items()}
+
+    # the split, CUDA events between the parts; the targets alone and the
+    # loss's own peak above what the forward left allocated
+    loss_fn = build_loss(cfg)
+    anchors = anchors_on(dev, size)
+    split = {"forward": 0.0, "targets_and_loss": 0.0, "backward": 0.0,
+             "clip_and_optimizer": 0.0}
+    reps, loss_peak = 3, 0.0
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        preds = state.model(img)
+        ev[1].record()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev[2].record()
+        loss = loss_fn(preds, annot)
+        ev[3].record()
+        torch.cuda.synchronize()
+        loss_peak = max(loss_peak, torch.cuda.max_memory_allocated() - base)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[4].record()
+        state.apply_gradients()
+        ev[5].record()
+        torch.cuda.synchronize()
+        for k, (a, z) in zip(split, ((0, 1), (2, 3), (3, 4), (4, 5))):
+            split[k] += ev[a].elapsed_time(ev[z]) / reps
+    del preds, loss
+    targets_ms = cuda_ms(lambda: assign_targets(
+        anchors, annot, cfg["num_classes"], size), 10)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the clip engaged: a gradient 1e4 times the raw one
+    state.optimizer.zero_grad(set_to_none=True)
+    loss_fn(state.model(img), annot).backward()
+    raw_norm = float(_grad_norm(state.model))
+    grads = [p.grad for p in state.model.parameters()]
+    torch._foreach_mul_(grads, 1e4)
+    planted = float(_grad_norm(state.model))
+    # the norm the optimizer is handed (its foreach nesterov update then
+    # adds the momentum into the gradients of a group without decay)
+    seen = []
+    hook = state.optimizer.register_step_pre_hook(
+        lambda *_: seen.append(float(_grad_norm(state.model))))
+    try:
+        state.apply_gradients()
+    finally:
+        hook.remove()
+    (clipped,) = seen
+    checks = {
+        "train_losses_finite": len(loss_vals) == 15
+        and bool(np.isfinite(loss_vals).all()),
+        "train_bn_stats_moved": min(moved.values()) > 0.0,
+        "train_no_stem_kernel": not any(v for k, v in launches.items()
+                                        if k.startswith("stem_")),
+        "train_no_suppress_kernel": launches["greedy_suppress"] == 0,
+        "train_no_cpu_tensors": not spy.cpu_ops,
+        "train_no_host_sync": sync_error is None,
+        "clip_engaged": planted > 10.0 and abs(clipped - 10.0) <= 1e-5 * 10.0,
+    }
+    record = {"model": "retinanet", "input_size": size,
+              "compute_dtype": cfg["compute_dtype"], "batch": b,
+              "timed_steps": iters, "launches": launches,
+              "loss_first_last": [loss_vals[0], loss_vals[-1]],
+              "bn_stats_moved": moved, "ms_per_step": step_ms,
+              "img_per_s": b * 1e3 / step_ms, "split_ms": split,
+              "targets_ms": targets_ms,
+              "iou_tensor_mb": b * anchors.shape[0] * cfg["max_annots"] * 4
+              / 1e6,
+              "loss_peak_memory_gb": loss_peak / 1e9,
+              "peak_memory_gb": peak_gb,
+              "raw_grad_norm": raw_norm,
+              "clip_planted_norm": planted, "clip_after_norm": clipped,
+              "sync_error": sync_error, "cpu_ops": sorted(set(spy.cpu_ops)),
+              "card": card}
+    del state, img, batch
+    return checks, record, launches
+
+
+def retinanet_phase(fit, dev, card, tmp):
+    """Phase 14: ``configs/retinanet_voc.yaml`` unchanged (512 px, bf16,
+    20 classes, B=32, clip_grad_norm 10) with seeded weights carried in
+    through the weight loader: serving (suppression once a dispatch, no
+    stem launch; keep masks on the model's own candidates, K = 512 of
+    49,104, full at B=8, bit-equal at B=8 and 64 and timed), the train step
+    (:func:`retinanet_train`), a 64 px float32 model and its loss on the
+    card against the CPU, and one epoch from phase 9's files through
+    ``train.run`` scored by ``cli.test`` on its ``best``. Returns the
+    launches on these paths and the suppression's timings."""
+    from podtpu_torch.cli import test as test_cli
+    from podtpu_torch.config import get_configs
+    from podtpu_torch.models.factory import build_model
+    from podtpu_torch.ops.retina import all_anchors
+    from podtpu_torch.train import run
+
+    t_phase = time.perf_counter()
+    cfg = get_configs(os.path.join(REPO, RETINA_CONFIG))
+    if (cfg["input_size"], cfg["num_classes"], cfg["compute_dtype"],
+            cfg["batch_size"]) != (512, 20, "bfloat16", 32):
+        raise AssertionError(f"{RETINA_CONFIG} is not 512 px bf16 on 20 "
+                             "classes at B=32")
+    n_anchors = int(all_anchors(512).shape[0])
+    rng = np.random.default_rng(SEED + 50)
+    flat = random_weights(build_model(cfg, dev), SEED + 50)
+    checks, serving, serve_launches, suppress = family_serving(
+        cfg, flat, dev, rng, 512)
+    checks["suppress_K_full_at_B8"] = (
+        serving["suppress_keep"]["B8"]["valid"] == 8 * 512)
+    train_checks, train, train_launches = retinanet_train(cfg, flat, dev,
+                                                          card)
+    checks.update(train_checks)
+    del flat
+    torch.cuda.empty_cache()
+    small = dict(cfg, max_annots=8)
+    checks["card_vs_cpu_float32"], reference = card_vs_cpu(
+        small, 64, SEED + 53, rng, dev, rel_tol=(1e-4, 1e-3),
+        annot=synthetic_annotations(small, 2, SEED + 54))
+    fit_checks, fit_record, fit_launches = family_fit(
+        cfg, fit, dev, tmp, train_main=run.main, test_main=test_cli.main,
+        n_steps=4, n_val=3, stem_per_step=0)
+    checks.update(fit_checks)
+    launches = _add_counts(_add_counts(serve_launches, fit_launches),
+                           train_launches)
+    emit({"phase": "retinanet", "config": RETINA_CONFIG,
+          "anchors": n_anchors, "serving": serving, "train": train,
+          "reference": reference, "fit": fit_record, "checks": checks,
+          "seconds": time.perf_counter() - t_phase,
+          "tolerance": "keep masks exact; float32 card vs CPU: heads 1e-4 "
+                       "and detections 1e-3 of their largest value, valid "
+                       "masks equal, loss 1e-4 rel; the clipped norm 1e-5 "
+                       "rel of 10; test vs fit: val_loss 1e-5 rel, val_mAP "
+                       "1e-6",
+          "card": card})
+    if not all(checks.values()):
+        raise AssertionError(f"the retinanet phase failed its checks: "
+                             f"{ {k: v for k, v in checks.items() if not v} }")
+    torch.cuda.empty_cache()
+    return launches, suppress
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2539,6 +2776,9 @@ def main() -> int:
             fit, dev, card, tmp)
         # 13. the YOLOv4-tiny and YOLOv4 families on the same files
         v4_launches, v4_suppress = v4_families_phase(fit, dev, card, tmp)
+        # 14. RetinaNet-ResNet50 on the same files
+        retina_launches, retina_suppress = retinanet_phase(fit, dev, card,
+                                                           tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for e in stem_entries:
@@ -2549,6 +2789,7 @@ def main() -> int:
             e["name"][len("stem_"):]]
         e["launches_families"] = family_launches[e["name"]]
         e["launches_v4_families"] = v4_launches[e["name"]]
+        e["launches_retinanet"] = retina_launches[e["name"]]
         t448 = stem448["timing"][e["name"][len("stem_"):]]
         e.update(ms_448=t448["ms"], plain_ms_448=t448["plain_ms"],
                  bound_ms_448=t448["bound_ms"],
@@ -2581,6 +2822,9 @@ def main() -> int:
         "launches_v4_families": v4_launches["greedy_suppress"],
         **{f"{k}_{tag}": v4_suppress[m][k]
            for m, tag in (("yolov4-tiny", "v4tiny"), ("yolov4", "v4"))
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+        "launches_retinanet": retina_launches["greedy_suppress"],
+        **{f"{k}_retina": retina_suppress[k]
            for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

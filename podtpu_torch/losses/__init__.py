@@ -6,23 +6,27 @@ from typing import Callable
 
 import torch
 
+from podtpu_torch.losses.focal import focal_loss  # noqa: F401
 from podtpu_torch.losses.yolov1 import yolov1_loss
 from podtpu_torch.losses.yolov2 import yolov2_loss_v2
 from podtpu_torch.losses.yolov3 import yolov3_loss_v2
 
-# families of podtpu's build_loss that the port does not build yet
-_LATER = ("retinanet",)
-
 
 def build_loss(cfg: dict) -> Callable:
     """Config -> ``loss(preds, annots) -> scalar``, as ``podtpu`` wires it:
-    ``yolov1_loss`` for yolov1, ``yolov2_loss_v2`` for yolov2 and
-    ``yolov3_loss_v2`` for yolov3, yolov4-tiny and yolov4."""
+    ``yolov1_loss`` for yolov1, ``yolov2_loss_v2`` for yolov2,
+    ``yolov3_loss_v2`` for yolov3, yolov4-tiny and yolov4, and
+    ``retinanet_loss`` (focal + smooth-L1, anchors cached per device) for
+    retinanet."""
     name = cfg["model"]
-    if name in _LATER:
-        raise NotImplementedError(f"the '{name}' loss is not ported yet "
-                                  "(ROADMAP.md queue 1, other families)")
     num_classes = cfg["num_classes"]
+    if name == "retinanet":
+        # imported here, as podtpu does: ops/retina.py imports losses
+        from podtpu_torch.ops.retina import retinanet_loss
+
+        input_size = cfg["input_size"]
+        return lambda preds, annots: retinanet_loss(preds, annots,
+                                                    num_classes, input_size)
     if name == "yolov1":
         num_boxes = cfg["num_boxes"]
         return lambda preds, annots: yolov1_loss(preds, annots, num_classes,

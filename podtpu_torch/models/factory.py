@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from podtpu_torch import resolve_device
+from podtpu_torch.models.retinanet import RetinaNet
 from podtpu_torch.models.yolov1 import YoloV1
 from podtpu_torch.models.yolov2 import YoloV2
 from podtpu_torch.models.yolov3 import YoloV3
@@ -16,9 +17,6 @@ _DTYPES = {
     "bfloat16": torch.bfloat16,
 }
 
-# families of podtpu's factory that the port does not build yet
-_LATER = ("retinanet",)
-
 
 def compute_dtype(cfg: dict) -> torch.dtype:
     return _DTYPES[cfg.get("compute_dtype", "float32")]
@@ -29,7 +27,8 @@ def build_model(cfg: dict, device: str | torch.device | None = None,
     """Instantiate the detector named by ``cfg['model']``, in eval mode
     unless ``train``.
 
-    Weights are PyTorch's default init; load trained ones with
+    Weights are PyTorch's default init (RetinaNet's class prior bias
+    aside); load trained ones with
     :func:`podtpu_torch.export.weights.load_npz_weights`.
     """
     name = cfg["model"]
@@ -37,9 +36,6 @@ def build_model(cfg: dict, device: str | torch.device | None = None,
         raise NotImplementedError("qat (fake-quant training) is not ported "
                                   "yet (ROADMAP.md queue 1, train-step "
                                   "options)")
-    if name in _LATER:
-        raise NotImplementedError(f"model '{name}' is not ported yet "
-                                  "(ROADMAP.md queue 1, other families)")
     kw = dict(num_classes=cfg["num_classes"],
               in_channels=cfg.get("in_channels", 3), dtype=compute_dtype(cfg))
     if name == "yolov1":
@@ -53,6 +49,8 @@ def build_model(cfg: dict, device: str | torch.device | None = None,
         model = YoloV4Tiny(num_anchors=len(cfg["anchors"]), **kw)
     elif name == "yolov4":
         model = YoloV4(num_anchors=len(cfg["anchors"]), **kw)
+    elif name == "retinanet":
+        model = RetinaNet(**kw)
     else:
         raise ValueError(f"unknown model '{name}'")
     return model.to(resolve_device(device)).train(train)

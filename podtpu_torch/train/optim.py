@@ -10,7 +10,10 @@
 decides. ``torch.optim.SGD`` (coupled decay added to the gradient before
 momentum, ``nesterov``) is the update ``podtpu``'s optax chain applies
 (``tests/test_optim_parity.py``). The learning rate is set per update from
-the schedule by :class:`podtpu_torch.train.state.TrainState`.
+the schedule by :class:`podtpu_torch.train.state.TrainState`, which also
+clips the raw gradients by their global norm first where
+``optimizer_options.clip_grad_norm`` is set (:func:`clip_by_global_norm_`,
+``optax.clip_by_global_norm`` at the head of ``podtpu``'s chain).
 """
 
 from __future__ import annotations
@@ -19,8 +22,7 @@ import torch
 from torch import nn
 
 # optimizer_options that podtpu reads and the port does not apply yet
-_UNPORTED_OPTIONS = ("flat", "accum_steps", "skip_nonfinite",
-                     "clip_grad_norm")
+_UNPORTED_OPTIONS = ("flat", "accum_steps", "skip_nonfinite")
 
 
 def decay_policy(cfg: dict) -> str:
@@ -33,6 +35,31 @@ def decay_policy(cfg: dict) -> str:
         raise ValueError(f"unknown decay_policy '{policy}' "
                          "(expected kernels | all)")
     return policy
+
+
+def clip_grad_norm(cfg: dict) -> float | None:
+    """``optimizer_options.clip_grad_norm`` (None or 0: no clipping)."""
+    value = dict(cfg.get("optimizer_options", {})).get("clip_grad_norm")
+    return float(value) if value else None
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float
+                         ) -> torch.Tensor:
+    """Clip ``grads`` in place as ``optax.clip_by_global_norm`` does:
+    ``g`` where the global norm is below ``max_norm``, else
+    ``(g / norm) * max_norm``, chosen on the device (no host sync).
+    Returns the global norm before the clip.
+
+    Not ``torch.nn.utils.clip_grad_norm_``: it scales by
+    ``max / (norm + 1e-6)`` whether or not the norm is over, a different
+    update."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    under = norm < max_norm
+    # below the limit g / 1 * 1 leaves each gradient bit for bit
+    torch._foreach_div_(grads, torch.where(under, 1.0, norm))
+    torch._foreach_mul_(grads, torch.where(under, 1.0, max_norm))
+    return norm
 
 
 def _is_kernel(module: nn.Module, name: str) -> bool:

@@ -11,7 +11,11 @@ import torch
 
 from podtpu_torch.export.weights import load_flat_weights
 from podtpu_torch.models.factory import build_model
-from podtpu_torch.train.optim import build_optimizer
+from podtpu_torch.train.optim import (
+    build_optimizer,
+    clip_by_global_norm_,
+    clip_grad_norm,
+)
 from podtpu_torch.train.schedule import Schedule, build_schedule
 
 
@@ -21,10 +25,18 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     schedule: Schedule
     step: int = 0
+    clip_norm: float | None = None  # optimizer_options.clip_grad_norm
 
     def apply_gradients(self):
         """One optimizer update from the parameters' ``.grad``, at the
-        schedule's lr for this update (``schedule(step)``)."""
+        schedule's lr for this update (``schedule(step)``); with
+        ``clip_norm`` set, the raw gradients are first clipped by their
+        global norm (every parameter's, BN's included, before the coupled
+        weight decay), as ``podtpu``'s chain puts the clip first."""
+        if self.clip_norm:
+            grads = [p.grad for group in self.optimizer.param_groups
+                     for p in group["params"] if p.grad is not None]
+            clip_by_global_norm_(grads, self.clip_norm)
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -48,7 +60,8 @@ def create_train_state(cfg: dict, device: str | torch.device | None = None,
     model = build_model(cfg, device, train=True)
     if weights is not None:
         load_flat_weights(model, weights)
-    return TrainState(model, build_optimizer(cfg, model), build_schedule(cfg))
+    return TrainState(model, build_optimizer(cfg, model), build_schedule(cfg),
+                      clip_norm=clip_grad_norm(cfg))
 
 
 def param_count(model: torch.nn.Module) -> int:

@@ -30,6 +30,7 @@ from podtpu_torch.ops.decode import (
     layer_anchors,
 )
 from podtpu_torch.ops.nms import batched_class_aware_nms
+from podtpu_torch.ops.retina import decode_retinanet
 
 
 def _as_input(img: torch.Tensor) -> torch.Tensor:
@@ -43,10 +44,14 @@ def _as_input(img: torch.Tensor) -> torch.Tensor:
 def make_decoder(cfg: dict) -> Callable:
     """Config -> fn(raw head output(s)) -> [B, N, 6] candidates: one tensor
     for yolov1 and yolov2, the tuple of three heads for yolov3, yolov4-tiny
-    and yolov4 (all three through ``decode_yolov3``)."""
+    and yolov4 (all three through ``decode_yolov3``), the five (cls, box)
+    levels for retinanet (its anchors cached per device by
+    ``ops/retina.py``)."""
     name = cfg["model"]
     num_classes = cfg["num_classes"]
     input_size = cfg["input_size"]
+    if name == "retinanet":
+        return lambda preds: decode_retinanet(preds, num_classes, input_size)
     if name == "yolov1":
         num_boxes = cfg["num_boxes"]
         return lambda pred: decode_yolov1(pred, num_classes, num_boxes,
@@ -64,8 +69,7 @@ def make_decoder(cfg: dict) -> Callable:
 
         return decode_v2
     if name not in ("yolov3", "yolov4-tiny", "yolov4"):
-        raise NotImplementedError(f"decoding '{name}' is not ported yet "
-                                  "(ROADMAP.md queue 1, other families)")
+        raise ValueError(f"unknown model '{name}'")
     anchors = cfg["anchors"]
     cache: dict = {}  # (device, layer shapes) -> per-layer grid anchors
 
@@ -87,6 +91,9 @@ def _decoder_and_nms(cfg: dict) -> tuple[Callable, Callable]:
     if cfg["model"] == "yolov1" and nopts.get("multi_label"):
         raise ValueError("multi_label needs per-box class scores; the "
                          "yolov1 head predicts one class set per cell")
+    if cfg["model"] == "retinanet" and nopts.get("multi_label"):
+        raise ValueError("multi_label is a YOLO-head option; the "
+                         "retinanet decoder is per-anchor single-label")
     unported = [k for k in ("multi_label", "merge", "agnostic", "classes",
                             "backend") if nopts.get(k)]
     if unported:

@@ -343,3 +343,60 @@ def test_family_steps_launch_the_kernels(cuda, model):
         assert boxes.shape[1] == (49 if model == "yolov1" else 20)
         assert torch.equal(greedy_suppress(boxes, ok, 0.45),
                            greedy_suppress_reference(boxes, ok, 0.45))
+
+
+@pytest.mark.cuda
+def test_retinanet_serving_and_clipped_step_on_the_card(cuda):
+    """RetinaNet at 128 px in bf16 (3,069 anchors): the serving graph
+    launches suppression once a batch and its keep masks on the model's own
+    candidates (K = 512) equal the plain version's; a train step of the
+    recipe (clip_grad_norm 10) launches no stem kernel, gives a finite loss
+    and leaves the global gradient norm at most 10."""
+    from podtpu_torch.data.loader import pad_annotations
+    from podtpu_torch.ops.nms import _select_candidates
+    from podtpu_torch.train.state import create_train_state
+    from podtpu_torch.train.steps import (
+        make_decoder,
+        make_serve_fn,
+        make_train_step,
+    )
+
+    cfg = dict(model="retinanet", num_classes=20, input_size=128,
+               compute_dtype="bfloat16", optimizer="sgd",
+               optimizer_options={"lr": 1e-2, "momentum": 0.9,
+                                  "nesterov": True, "weight_decay": 1e-4,
+                                  "clip_grad_norm": 10.0})
+    torch.manual_seed(0)
+    state = create_train_state(cfg, cuda)
+    with torch.no_grad():  # no prior: candidates pass the threshold
+        state.model.cls_subnet.pred.bias.zero_()
+    r = np.random.default_rng(0)
+    img = torch.from_numpy(r.integers(0, 256, (2, 128, 128, 3),
+                                      dtype=np.uint8)).to(cuda)
+    batch = {"img": img, "annot": torch.from_numpy(pad_annotations(
+        [np.array([[0.5, 0.5, 0.3, 0.4, 3]], np.float32)] * 2, 8)).to(cuda)}
+    before = dict(sk.stem_fused.launches)
+    norms = []  # the gradients' norm as the optimizer is handed them
+    state.optimizer.register_step_pre_hook(lambda *_: norms.append(float(
+        torch.linalg.vector_norm(torch.stack(
+            [p.grad.norm() for p in state.model.parameters()])))))
+    state, m = make_train_step(cfg)(state, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(m["loss"]) and state.step == 1
+    assert sk.stem_fused.launches == before
+    assert len(norms) == 1 and norms[0] <= 10.0 * (1 + 1e-5), norms
+
+    model = state.model.eval()
+    launches = greedy_suppress.launches
+    x = img.float() / 255.0
+    dets, valid = make_serve_fn(cfg, model)(x)
+    torch.cuda.synchronize()
+    assert greedy_suppress.launches == launches + 1
+    assert dets.device.type == "cuda" and torch.isfinite(dets).all()
+    with torch.inference_mode():
+        _, ok, boxes = _select_candidates(make_decoder(cfg)(model(x)), 0.25,
+                                          512)
+        boxes = boxes.contiguous()
+        assert boxes.shape[1] == 512 and bool(ok.any())
+        assert torch.equal(greedy_suppress(boxes, ok, 0.45),
+                           greedy_suppress_reference(boxes, ok, 0.45))

@@ -106,9 +106,3 @@ def test_weights_shape_mismatch_raises(flat):
     bad["params::c4_route::bn::scale"] = np.ones(64, np.float32)
     with pytest.raises(ValueError, match="shape mismatch"):
         load_flat_weights(build_model(yolo_cfg(), device="cpu"), bad)
-
-
-@pytest.mark.parametrize("model", ["retinanet"])
-def test_unported_families_raise(model):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(yolo_cfg(model=model), device="cpu")

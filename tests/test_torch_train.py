@@ -219,12 +219,6 @@ def test_yolov3_loss_v2_value_and_head_gradients():
                                    atol=1e-6)
 
 
-@pytest.mark.parametrize("model", ["retinanet"])
-def test_unported_losses_raise(model):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_loss(yolo_cfg(model=model))
-
-
 # ---- schedules and optimizer ----------------------------------------------
 
 @pytest.mark.parametrize("name,opts", [
@@ -311,9 +305,7 @@ def test_decay_policy_family_defaults(model, policy):
                                   {"optimizer_options": {"lr": 1,
                                                          "accum_steps": 2}},
                                   {"optimizer_options": {"lr": 1,
-                                                         "skip_nonfinite": 3}},
-                                  {"optimizer_options": {"lr": 1,
-                                                         "clip_grad_norm": 1.0}}])
+                                                         "skip_nonfinite": 3}}])
 def test_unported_optimizer_options_raise(opts):
     cfg = {"model": "yolov3", "optimizer": "sgd",
            "optimizer_options": {"lr": 1}, **opts}
