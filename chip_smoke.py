@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (phases 12 and 13 one a family) and
+Phases, each printing one JSON line (phases 12 and 13 one a family,
+phase 17 one a profile) and
 raising on failure:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
@@ -130,7 +131,29 @@ raising on failure:
    planted gradient whose norm the clip brings to 10); a 64 px float32
    model on the card against the CPU (heads, detections, loss); one epoch
    from phase 9's files through ``train.run`` at B=32 and ``cli.test`` on
-   its ``best`` (the same val_loss and val_mAP), the checkpoints deleted.
+   its ``best`` (the same val_loss and val_mAP), the checkpoints deleted;
+15. device_aug: the device augmentation's apply (``data/device_aug.py``)
+   at B=64, 416 px on the card against the same function on the CPU with
+   the same draws (made on the card): the exact HSV path bit for bit, the
+   approximate one within 1e-5, the warp within 1e-4 (TF32 off); each
+   timed beside its bound and phase 7's step. Then
+   ``configs/yolov4_synth.yaml`` as shipped (``device_augment: true``) on
+   a generated 4-class 256 px set (64 + 16 images), 2 epochs through
+   ``train.run``'s entry point and ``cli.test`` on ``last``; one more step
+   with no host synchronisation and no CPU tensor;
+16. fit, two more ways: phase 9's run with ``device_augment: true``, and
+   with ``device_geom`` and ``device_hsv: exact`` as well (the stem's four
+   kernels every step), each beside phase 9's: the loader alone, ``fit``'s
+   img/s, the share blocked on the loader and the augmentation's ms a
+   step; then a checkpoint saved synchronously and asynchronously, each
+   save's blocking ms, both restored equal;
+17. profile: ``podtpu_torch.utils.step_profile`` over 3 steps of
+   YOLOv3 (B=64), YOLOv4-tiny (B=64), YOLOv4 (B=32) and RetinaNet (B=32)
+   on a batch on the card, and of YOLOv3 fed from phase 9's files with
+   and without device augmentation: the top kernels, busy and window ms
+   and the idle share, the backward by autograd node, the step by part
+   and the forward by module; it fails where these cover less than 99%
+   of the kernels' time.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -141,6 +164,7 @@ no result.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import os
 import re
@@ -1128,7 +1152,8 @@ def fit_phase(dev, card, step_img_s, tmp):
     from podtpu_torch.data.synthetic import generate
     from podtpu_torch.native import build as native_build
     from podtpu_torch.train.run import make_loaders, train
-    from podtpu_torch.train.trainer import Trainer, restore_eval_weights
+    from podtpu_torch.train.trainer import (Trainer, put_batch,
+                                            restore_eval_weights)
 
     native_built_here = not os.path.exists(native_build._target())
     t0 = time.perf_counter()
@@ -1175,8 +1200,9 @@ def fit_phase(dev, card, step_img_s, tmp):
         n_fit_validations = len(probes.validations)
 
         # no CPU tensor inside one train step and one eval step
-        batch = resumed._put({k: v for k, v in next(iter(
-            make_loaders(cfg)[0])).items() if k != "n_valid"})
+        batch = put_batch({k: v for k, v in next(iter(
+            make_loaders(cfg)[0])).items() if k != "n_valid"},
+            resumed.device)
         spies = {}
         for name, fn in (("train_step", resumed.train_step),
                          ("eval_step", resumed.eval_step)):
@@ -1438,6 +1464,7 @@ def consume_phase(fit: dict, dev, card, tmp: str) -> dict:
         greedy_suppress_reference,
     )
     from podtpu_torch.train.steps import _as_input, _decoder_and_nms
+    from podtpu_torch.train.trainer import put_batch
 
     cfg, best, best_row = fit["cfg"], fit["best"], fit["best_row"]
     val_list = fit["data"]["val_list"]
@@ -1514,7 +1541,7 @@ def consume_phase(fit: dict, dev, card, tmp: str) -> dict:
     batch = next(iter(Loader(val_ds, batch_size=1, shuffle=False,
                              max_annots=cfg["max_annots"], workers=1)))
     batch.pop("n_valid")
-    on_card = trainer._put(batch)
+    on_card = put_batch(batch, trainer.device)
     split = {"eval_step_ms": cuda_ms(
         lambda: trainer.eval_step(trainer.state, on_card), 20)}
     model = trainer.state.model.eval()
@@ -2003,6 +2030,7 @@ def family_fit(cfg, fit, dev, tmp, train_main=None, test_main=None,
     import yaml
 
     from podtpu_torch.train.run import make_loaders
+    from podtpu_torch.train.trainer import put_batch
 
     name = cfg["model"].replace("-", "_")
     train_main = train_main or importlib.import_module(
@@ -2030,8 +2058,9 @@ def family_fit(cfg, fit, dev, tmp, train_main=None, test_main=None,
         ckpt_dir = os.path.join(trainer.run_dir, "checkpoints")
         found = sorted(os.listdir(ckpt_dir))
         # no CPU tensor inside a steady-state train step and eval step
-        batch = trainer._put({k: v for k, v in next(iter(
-            make_loaders(fcfg)[0])).items() if k != "n_valid"})
+        batch = put_batch({k: v for k, v in next(iter(
+            make_loaders(fcfg)[0])).items() if k != "n_valid"},
+            trainer.device)
         spies = {}
         for step_name, fn in (("train_step", trainer.train_step),
                               ("eval_step", trainer.eval_step)):
@@ -2597,6 +2626,384 @@ def retinanet_phase(fit, dev, card, tmp):
     return launches, suppress
 
 
+# ---- phases 15-17: device augmentation, the fit three ways, the profile ----
+
+AUG_TOL = {"exact": 0.0, "approx": 1e-5, "warp": 1e-4}
+
+
+def aug_bound_ms(kind, b, h, w):
+    """(bound ms, by): the larger of the bytes the function must move (the
+    images read once and written once: uint8 in and float32 out for the
+    jitter, float32 both ways for the warp) over the card's memory rate,
+    and its float32 operations over the card's float32 rate (TF32 off).
+    The warp's two batched products make B * 3 * (H*H*W + H*W*W)
+    multiply-adds, two operations each."""
+    px = b * h * w * 3
+    if kind == "warp":
+        nbytes, ops = px * 8, 2 * b * 3 * (h * h * w + h * w * w)
+    else:
+        nbytes, ops = px * (1 + 4), 0
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def device_aug_checks(dev, b=64, size=416, seed=SEED):
+    """The apply on the card against the same function on the CPU with the
+    same draws (made on the card, copied over), for ``exact``, ``approx``
+    and the warp, each timed with CUDA events. Returns (checks, record)."""
+    from podtpu_torch.data import device_aug as T
+
+    r = np.random.default_rng(seed + 15)
+    img = torch.from_numpy(r.integers(0, 256, (b, size, size, 3),
+                                      dtype=np.uint8))
+    annot = torch.from_numpy(synthetic_annotations(
+        {"max_annots": 64, "num_classes": 20}, b, seed))
+    s = r.uniform(0.75, 1.25, (b, 1))
+    geom = torch.from_numpy(np.concatenate(
+        [s, s, r.uniform(-0.1, 0.1, (b, 2)) * size], 1).astype(np.float32))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gains, flips = T.draw_augment(b, gen)
+    img_d, annot_d, geom_d = img.to(dev), annot.to(dev), geom.to(dev)
+    checks, err, ms = {}, {}, {}
+    for hsv in ("exact", "approx"):
+        got = T.apply_augment(img_d, annot_d, gains, flips, hsv)
+        want = T.apply_augment(img, annot, gains.cpu(), flips.cpu(), hsv)
+        err[hsv] = float((got[0].cpu() - want[0]).abs().max())
+        checks[f"{hsv}_images"] = err[hsv] <= AUG_TOL[hsv]
+        checks[f"{hsv}_boxes"] = torch.equal(got[1].cpu(), want[1])
+        ms[hsv] = cuda_ms(lambda: T.apply_augment(  # noqa: B023
+            img_d, annot_d, gains, flips, hsv), 10)
+    x = img.float() / 255.0
+    x_d = x.to(dev)
+    tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
+    err["warp"] = float((T.separable_affine(x_d, geom_d).cpu()
+                         - T.separable_affine(x, geom)).abs().max())
+    checks["warp"] = err["warp"] <= AUG_TOL["warp"]
+    ms["warp"] = cuda_ms(lambda: T.separable_affine(x_d, geom_d), 10)
+    ms["draw"] = cuda_ms(lambda: T.draw_augment(b, gen), 20)
+    checks["draws_on_the_card"] = (gains.device.type == flips.device.type
+                                   == "cuda")
+    bound = {k: aug_bound_ms(k, b, size, size)
+             for k in ("exact", "approx", "warp")}
+    bound = {"bound_ms": {k: v[0] for k, v in bound.items()},
+             "bound_by": {k: v[1] for k, v in bound.items()}}
+    return checks, {"batch": b, "input_size": size, "max_abs_err": err,
+                    "tolerance": AUG_TOL, "ms": ms, **bound,
+                    "matmul_allow_tf32": tf32}
+
+
+def yolov4_synth_run(dev, tmp):
+    """``configs/yolov4_synth.yaml`` as shipped (``device_augment: true``),
+    its three paths pointed at a generated 4-class 256 px set (64 train and
+    16 val images) and its epochs cut to 2: ``train.run``'s entry point,
+    then ``cli.test``'s on ``last``; one more step under
+    ``set_sync_debug_mode("error")`` and the CPU-tensor spy. Returns
+    (checks, record, launches of the two runs)."""
+    import shutil
+
+    import yaml
+
+    from podtpu_torch.cli import test as test_cli
+    from podtpu_torch.config import get_configs
+    from podtpu_torch.data.synthetic import generate
+    from podtpu_torch.train import run
+    from podtpu_torch.train.trainer import put_batch
+
+    shipped = get_configs(os.path.join(REPO, "configs", "yolov4_synth.yaml"))
+    data = generate(os.path.join(tmp, "synth4"), n_train=64, n_val=16,
+                    size=256, num_classes=4, max_objects=8, seed=SEED)
+    cfg = dict(shipped, train_list=data["train_list"],
+               val_list=data["val_list"], names=data["names"], epochs=2,
+               save_dir=os.path.join(tmp, "runs_synth"))
+    path = os.path.join(tmp, "yolov4_synth.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    try:
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        trainer = run.main(["--cfg", path])
+        torch.cuda.synchronize()
+        fit_s, fit_launches = time.perf_counter() - t0, _counts()
+        last = os.path.join(trainer.run_dir, "checkpoints", "last")
+        # one more step on a batch from the files: no host sync, no CPU op
+        batch = put_batch({k: v for k, v in next(iter(
+            run.make_loaders(cfg)[0])).items() if k != "n_valid"},
+            trainer.device)
+        trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        spy, sync_error = _CpuTensorSpy(), None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with spy:
+                trainer.train_step(trainer.state, batch)
+        except RuntimeError as e:  # a synchronising call inside the step
+            sync_error = str(e)[:300]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        rows = trainer.history
+        del trainer
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = test_cli.main(["--cfg", path, "--ckpt", last])
+        torch.cuda.synchronize()
+        test_s, test_launches = time.perf_counter() - t0, _counts()
+    finally:
+        shutil.rmtree(cfg["save_dir"], ignore_errors=True)
+    n_val = -(-16 // int(cfg["batch_size"]))
+    checks = {
+        "as_shipped": shipped["device_augment"] is True
+        and (shipped["input_size"], shipped["num_classes"]) == (256, 4),
+        "two_epochs": [r["epoch"] for r in rows] == [0, 1]
+        and rows[-1]["step"] == 2 * (64 // int(cfg["batch_size"])),
+        "finite": all(np.isfinite(r["train_loss"]) for r in rows),
+        "no_host_sync_in_a_step": sync_error is None,
+        "no_cpu_tensors": not spy.cpu_ops,
+        "test_scores": np.isfinite(res["val_loss"])
+        and 0.0 <= res["val_mAP"] <= 1.0,
+        "test_suppress_once_per_val_batch":
+            test_launches["greedy_suppress"] == n_val,
+    }
+    return checks, {"config": "configs/yolov4_synth.yaml", "epochs": 2,
+                    "history": rows, "test": res, "fit_seconds": fit_s,
+                    "test_seconds": test_s, "sync_error": sync_error,
+                    "cpu_ops": sorted(set(spy.cpu_ops)),
+                    "fit_launches": fit_launches,
+                    "test_launches": test_launches}, _add_counts(
+                        fit_launches, test_launches)
+
+
+def device_aug_phase(dev, card, step_ms, tmp):
+    """Phase 15: the augmentation's apply at B=64, 416 px on the card
+    against the CPU, timed beside phase 7's train step, then
+    ``configs/yolov4_synth.yaml`` through its entry points. Returns the
+    launches of the yolov4_synth run."""
+    t_phase = time.perf_counter()
+    checks, record = device_aug_checks(dev)
+    synth_checks, synth, launches = yolov4_synth_run(dev, tmp)
+    checks.update({f"yolov4_synth_{k}": v for k, v in synth_checks.items()})
+    emit({"phase": "device_aug", "checks": checks, **record,
+          "train_step_ms": step_ms, "yolov4_synth": synth,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    if not all(checks.values()):
+        raise AssertionError(f"the device_aug phase failed its checks: "
+                             f"{ {k: v for k, v in checks.items() if not v} }")
+    return launches
+
+
+class _AugTimer:
+    """Within it, the train steps a ``make_train_step`` builds time their
+    warp and their jitter with CUDA events (the script's view)."""
+
+    def __init__(self):
+        self.events = {"warp": [], "jitter": []}
+
+    def _timed(self, fn, key):
+        def call(*a):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a)
+            ev[1].record()
+            self.events[key].append(ev)
+            return out
+        return call
+
+    def __enter__(self):
+        from podtpu_torch.train import steps
+
+        self._saved = (steps.separable_affine, steps.make_device_augment)
+        warp, make = self._saved
+        timer = self
+
+        def make_timed(cfg):
+            aug = make(cfg)
+            return None if aug is None else timer._timed(aug, "jitter")
+
+        steps.separable_affine = self._timed(warp, "warp")
+        steps.make_device_augment = make_timed
+        return self
+
+    def __exit__(self, *exc):
+        from podtpu_torch.train import steps
+
+        steps.separable_affine, steps.make_device_augment = self._saved
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {k: [a.elapsed_time(b) for a, b in v]
+                for k, v in self.events.items()}
+
+
+FIT_WAYS = {
+    "host": {},
+    "device_augment": {"device_augment": True},
+    "device_geom_exact": {"device_augment": True, "device_geom": True,
+                          "device_hsv": "exact"},
+}
+
+
+def fit_ways_phase(fit, dev, card, tmp):
+    """Phase 16: ``train.run.train`` on phase 9's files three ways (host
+    augmentation as in phase 9; ``device_augment: true``; with
+    ``device_geom`` and ``device_hsv: exact`` as well), 2 epochs validated
+    each, run in the order ABC CBA after one unmeasured pass of the loader
+    (the files in the page cache), so each way has a reading early and
+    late. For each run: the loader alone, ``fit``'s img/s, the share
+    blocked on the loader, the augmentation's ms a step and the stem's
+    launches (every step). Then checkpoints of the last run's state after
+    a train step each, saved synchronously and asynchronously: the
+    blocking ms of each, and the two restored equal. Returns the launches
+    of the six runs."""
+    from podtpu_torch.train.run import make_loaders, train
+    from podtpu_torch.train.trainer import CheckpointIO, Trainer, put_batch
+
+    t_phase = time.perf_counter()
+    sum(1 for _ in make_loaders(dict(fit["cfg"]))[0])  # warms the cache
+    order = list(FIT_WAYS) + list(FIT_WAYS)[::-1]
+    ways = {way: [] for way in FIT_WAYS}
+    launches, checks = [], {}
+    steps_per_epoch = -(-128 // 64)
+    n_steps = 2 * steps_per_epoch
+    for i, way in enumerate(order):
+        extra = FIT_WAYS[way]
+        cfg = dict(fit["cfg"], save_dir=os.path.join(tmp, f"runs_{way}"),
+                   **extra)
+        loader = make_loaders(cfg)[0]
+        t0 = time.perf_counter()
+        n_img = sum(b["n_valid"] for b in loader)
+        loader_img_s = n_img / (time.perf_counter() - t0)
+        trainer = None  # the previous run's, freed before the next
+        with _FitProbes() as probes, _AugTimer() as timer:
+            torch.cuda.synchronize()
+            _zero_counts()
+            trainer = train(cfg, device="cuda")
+            torch.cuda.synchronize()
+            counts = _counts()
+        launches.append(counts)
+        aug_ms = timer.ms()
+        run = f"{way}_run{i}"
+        checks[f"{run}_stem_every_step"] = all(
+            counts[f"stem_{k}"] == n_steps for k in STEM_REPLACES)
+        checks[f"{run}_suppress_per_val_batch"] = \
+            counts["greedy_suppress"] == 4
+        checks[f"{run}_augmented_every_step"] = (
+            len(aug_ms["jitter"]) == (n_steps if extra else 0)
+            and len(aug_ms["warp"]) == (n_steps if "device_geom" in extra
+                                        else 0))
+        checks[f"{run}_finite"] = all(
+            np.isfinite([r["train_loss"], r["val_loss"]]).all()
+            for r in trainer.history)
+        fit_img_s = [r["images_per_sec"] for r in trainer.history]
+        ways[way].append({
+            "run": i,
+            "loader_alone_img_per_s": loader_img_s,
+            "fit_img_per_s": fit_img_s,
+            "fit_img_per_s_mean": float(np.mean(fit_img_s)),
+            "blocked_share": [e["blocked_share"] for e in probes.epochs],
+            # CUDA events around the warp and the jitter inside each step:
+            # the device's time between them, the host's enqueue gaps
+            # included (the profile phase has the kernels' own time);
+            # each epoch's first step also waits on its first batch
+            "device_augment_ms_per_step": {
+                k: float(np.median([x for j, x in enumerate(v)
+                                    if j % steps_per_epoch])) if v else 0.0
+                for k, v in aug_ms.items()},
+            "epochs": probes.epochs, "launches": counts,
+            "history": trainer.history})
+    # each device way's mean img/s over the host way's, in the same half
+    # of the order (ABC, then CBA): paired readings, two of each
+    paired = {way: [ways[way][h]["fit_img_per_s_mean"]
+                    / ways["host"][h]["fit_img_per_s_mean"]
+                    for h in range(2)] for way in FIT_WAYS if way != "host"}
+
+    # the checkpoint's blocking ms, off and on: a train step, then the
+    # state saved both ways and landed, three times (the first async save
+    # allocates its pinned buffers); the last saves restored equal
+    batch = put_batch({k: v for k, v in next(iter(loader)).items()
+                       if k != "n_valid"}, trainer.device)
+    ios = {mode: CheckpointIO(os.path.join(tmp, f"ckpt_{mode}"), is_async)
+           for mode, is_async in (("sync", False), ("async", True))}
+    saves = {mode: {"blocking_ms": [], "wait_ms": []} for mode in ios}
+    for _ in range(3):
+        trainer.state, _ = trainer.train_step(trainer.state, batch)
+        for mode, io in ios.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            io.save("last", trainer.state)
+            t1 = time.perf_counter()
+            io.wait()
+            saves[mode]["blocking_ms"].append((t1 - t0) * 1e3)
+            saves[mode]["wait_ms"].append((time.perf_counter() - t1) * 1e3)
+    restored = []
+    for mode in ios:
+        fresh = Trainer(trainer.cfg, device="cuda", eval_only=True)
+        CheckpointIO(os.path.join(tmp, f"ckpt_{mode}")).restore(
+            os.path.join(tmp, f"ckpt_{mode}", "last"), fresh.state)
+        restored.append(fresh.state)
+    a, b = restored
+    checks["async_restores_equal_to_sync"] = a.step == b.step and all(
+        torch.equal(v, b.model.state_dict()[k])
+        for k, v in a.model.state_dict().items()) and all(
+        torch.equal(v["momentum_buffer"],
+                    b.optimizer.state_dict()["state"][k]["momentum_buffer"])
+        for k, v in a.optimizer.state_dict()["state"].items())
+    emit({"phase": "fit", "part": "three ways", "order": order,
+          "checks": checks, "ways": ways,
+          "fit_img_per_s_over_host": paired,
+          "checkpoint_blocking_ms": saves,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    if not all(checks.values()):
+        raise AssertionError(f"the fit phase's three ways failed: "
+                             f"{ {k: v for k, v in checks.items() if not v} }")
+    return functools.reduce(_add_counts, launches)
+
+
+# the families profiled on a batch on the card: (config, batch)
+PROFILES = (("yolov3_voc", 64), ("yolov4-tiny_voc", 64), ("yolov4_voc", 32),
+            ("retinanet_voc", 32))
+
+
+def profile_phase(fit, dev, card):
+    """Phase 17: the step profile (``podtpu_torch.utils.step_profile``) of
+    each family's train step on a batch on the card, and of YOLOv3 fed
+    from phase 9's files with and without device augmentation. One line
+    each with (a) the top kernels, (b) busy / window ms and the idle
+    share, (c) the backward by node, (d) the step by part and the forward
+    by module; fails where the attribution covers less than 99%."""
+    import gc
+
+    from podtpu_torch.config import get_configs
+    from podtpu_torch.utils.step_profile import profile_steps
+
+    runs = [(name, b, None) for name, b in PROFILES]
+    runs += [("yolov3_voc", None, {}),
+             ("yolov3_voc", None, {"device_augment": True})]
+    failed = []
+    t_phase = time.perf_counter()
+    for name, b, files in runs:
+        cfg = get_configs(os.path.join(REPO, "configs", f"{name}.yaml"))
+        if files is not None:
+            cfg.update(train_list=fit["data"]["train_list"],
+                       val_list=fit["data"]["val_list"], **files)
+        t0 = time.perf_counter()
+        out = profile_steps(cfg, dev, batch=b, iters=3, warmup=2,
+                            from_files=files is not None)
+        out["top_kernels"] = out["top_kernels"][:30]
+        emit({"phase": "profile", "config": f"configs/{name}.yaml",
+              **out, "seconds": time.perf_counter() - t0, "card": card})
+        if out["coverage"] < 0.99:
+            failed.append((name, files, out["coverage"]))
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "profile", "runs": len(runs),
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    if failed:
+        raise AssertionError(f"the step profile covers less than 99% of "
+                             f"the busy time: {failed}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2779,6 +3186,12 @@ def main() -> int:
         # 14. RetinaNet-ResNet50 on the same files
         retina_launches, retina_suppress = retinanet_phase(fit, dev, card,
                                                            tmp)
+        # 15. device augmentation, and configs/yolov4_synth.yaml
+        synth_launches = device_aug_phase(dev, card, 64e3 / step_img_s, tmp)
+        # 16. phase 9's run three ways: host, device augmentation, warp
+        ways_launches = fit_ways_phase(fit, dev, card, tmp)
+        # 17. the step profile of each family and of the run from files
+        profile_phase(fit, dev, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for e in stem_entries:
@@ -2790,6 +3203,8 @@ def main() -> int:
         e["launches_families"] = family_launches[e["name"]]
         e["launches_v4_families"] = v4_launches[e["name"]]
         e["launches_retinanet"] = retina_launches[e["name"]]
+        e["launches_yolov4_synth"] = synth_launches[e["name"]]
+        e["launches_fit_ways"] = ways_launches[e["name"]]
         t448 = stem448["timing"][e["name"][len("stem_"):]]
         e.update(ms_448=t448["ms"], plain_ms_448=t448["plain_ms"],
                  bound_ms_448=t448["bound_ms"],
@@ -2824,6 +3239,8 @@ def main() -> int:
            for m, tag in (("yolov4-tiny", "v4tiny"), ("yolov4", "v4"))
            for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
         "launches_retinanet": retina_launches["greedy_suppress"],
+        "launches_yolov4_synth": synth_launches["greedy_suppress"],
+        "launches_fit_ways": ways_launches["greedy_suppress"],
         **{f"{k}_retina": retina_suppress[k]
            for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
         "plain_ms": plain_ms,

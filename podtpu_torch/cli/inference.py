@@ -28,6 +28,7 @@ from podtpu_torch.cli import (
 from podtpu_torch.config import get_configs
 from podtpu_torch.data.dataset import build_datasets
 from podtpu_torch.data.loader import Loader
+from podtpu_torch.train.trainer import put_batch
 from podtpu_torch.utils.profiling import Profile
 from podtpu_torch.utils.viz import annots_to_boxes, draw_boxes
 
@@ -51,7 +52,7 @@ def inference(cfg: dict, ckpt: str | None, out_dir: str | None,
         if limit is not None and idx >= limit:
             break
         batch.pop("n_valid", None)
-        dev_batch = trainer._put(batch)
+        dev_batch = put_batch(batch, trainer.device)
         with Profile(device=trainer.device) as p:
             _, dets, valid = trainer.eval_step(trainer.state, dev_batch)
             dets = dets[0].cpu().numpy()[valid[0].cpu().numpy()]

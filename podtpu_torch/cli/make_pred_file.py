@@ -21,6 +21,7 @@ from podtpu_torch.cli import (
 from podtpu_torch.config import get_configs
 from podtpu_torch.data.dataset import build_datasets
 from podtpu_torch.data.loader import Loader
+from podtpu_torch.train.trainer import put_batch
 
 
 def make_pred_files(cfg: dict, ckpt: str | None, out_dir: str, device=None):
@@ -34,7 +35,7 @@ def make_pred_files(cfg: dict, ckpt: str | None, out_dir: str, device=None):
     for idx, batch in enumerate(loader):
         batch.pop("n_valid", None)
         _, dets, valid = trainer.eval_step(trainer.state,
-                                           trainer._put(batch))
+                                           put_batch(batch, trainer.device))
         dets = dets[0].cpu().numpy()[valid[0].cpu().numpy()]
         img_path = val_ds.imgs[idx]
         stem = os.path.splitext(os.path.basename(img_path))[0]

@@ -22,6 +22,7 @@ from podtpu_torch.cli import (
     eval_trainer,
 )
 from podtpu_torch.config import get_configs
+from podtpu_torch.train.trainer import put_batch
 from podtpu_torch.utils.viz import draw_boxes
 
 
@@ -60,8 +61,8 @@ def run(cfg: dict, ckpt: str | None, input_path: str, output_path: str,
             inp = cv2.cvtColor(inp, cv2.COLOR_BGR2RGB).astype(
                 np.float32) / 255.0
             batch = {"img": inp[None], "annot": pad_annot}
-            _, dets, valid = trainer.eval_step(trainer.state,
-                                               trainer._put(batch))
+            _, dets, valid = trainer.eval_step(
+                trainer.state, put_batch(batch, trainer.device))
             dets = dets[0].cpu().numpy()[valid[0].cpu().numpy()].copy()
             if len(dets):
                 dets[:, [0, 2]] *= w0 / size

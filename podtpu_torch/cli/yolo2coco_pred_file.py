@@ -23,6 +23,7 @@ import numpy as np
 
 from podtpu_torch.cli import ARTIFACT_UNPORTED, add_common_args, eval_trainer
 from podtpu_torch.config import get_configs
+from podtpu_torch.train.trainer import put_batch
 
 
 def coco_record(image_id, det, sx: float, sy: float) -> dict:
@@ -106,7 +107,7 @@ def run(cfg: dict, ckpt: str | None, ann_json: str, out_json: str,
         inp = cv2.cvtColor(inp, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
         batch = {"img": inp[None], "annot": pad_annot}
         _, dets, valid = trainer.eval_step(trainer.state,
-                                           trainer._put(batch))
+                                           put_batch(batch, trainer.device))
         dets = dets[0].cpu().numpy()[valid[0].cpu().numpy()]
         sx, sy = w0 / size, h0 / size
         for det in dets:

@@ -14,9 +14,12 @@ Output per sample: ``img`` [H, W, 3] float32 RGB in [0, 1] (or uint8 with
 ``output_uint8``), NHWC, and ``boxes`` [n, 5] normalized
 ``[cx, cy, w, h, cls]``.
 
-Device augmentation (``device_augment`` / ``device_geom``: photometric
-jitter and the affine warp in the train step) is not ported: asking for it
-raises.
+With cfg ``device_augment`` (``photometric=False``) the host skips its
+photometric stages and their draws, which then run in the train step
+(``data/device_aug.py``); with ``device_geom`` the random affine (letterbox)
+or the resized crop (simple) is drawn here, its boxes transformed here, and
+the pixels ship un-warped beside a per-sample ``geom`` row
+``(sx, sy, bx, by)`` that the train step applies as a separable warp.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ import numpy as np
 
 from podtpu_torch.data import augment as A
 
-_DEVICE_AUG = ("is not ported yet (ROADMAP.md queue 1, item 8: device "
-               "augmentation)")
+# device_geom identity row (sx, sy, bx, by): the sample needs no device warp
+IDENTITY_GEOM = np.array([1.0, 1.0, 0.0, 0.0], np.float32)
 
 
 def read_yolo_labels(label_path: str) -> np.ndarray:
@@ -59,11 +62,6 @@ class YoloTxtDataset:
                  cache_images: bool = False, output_uint8: bool = False,
                  photometric: bool = True, device_geom: bool = False,
                  pixel_ops: bool = True):
-        if device_geom:
-            raise NotImplementedError(f"device_geom {_DEVICE_AUG}")
-        if not photometric:
-            raise NotImplementedError(
-                f"photometric=False (cfg device_augment) {_DEVICE_AUG}")
         with open(list_file, "r") as f:
             self.imgs = [l for l in f.read().splitlines() if l.strip()]
         self.input_size = input_size
@@ -80,6 +78,18 @@ class YoloTxtDataset:
         self._cache: dict[int, tuple] | None = {} if cache_images else None
         # ship uint8 RGB and let the device cast+/255: 4x less to copy
         self.output_uint8 = output_uint8
+        # False with cfg device_augment: the HSV jitter and the flip run on
+        # the batch's device (data/device_aug.py); the host keeps geometry
+        self.photometric = photometric
+        # cfg device_geom: the random affine also moves to the device. The
+        # samples ship un-warped pixels and a (sx, sy, bx, by) row; boxes
+        # are still transformed here with the same draw stream, so labels
+        # equal the host-warp path's. Mosaic samples keep the host warp
+        # (their canvas is 2S) and ship an identity row.
+        self.device_geom = device_geom
+        if device_geom and photometric:
+            raise ValueError("device_geom requires device_augment "
+                             "(photometric=False)")
         # the reference's Albumentations wrapper (Blur/MedianBlur/ToGray/
         # CLAHE, each p=0.01) runs in its letterbox pipeline only; draws
         # come from a per-sample stream derived independently of the main
@@ -154,10 +164,15 @@ class YoloTxtDataset:
             out[:, 4] = boxes[:, 0]
         if rng_px is not None:
             im = A.pixel_ops(im, rng_px)
-        im = A.augment_hsv(im, rng)
-        if rng.random() < 0.5:
-            im, out = self._flip_bgr(im, out)
-        return self._finalize(im, bgr=True), out
+        if self.photometric:
+            im = A.augment_hsv(im, rng)
+            if rng.random() < 0.5:
+                im, out = self._flip_bgr(im, out)
+        im = self._finalize(im, bgr=True)
+        if self.device_geom:
+            # warped on the host (2S canvas): identity device geometry
+            return im, out, IDENTITY_GEOM
+        return im, out
 
     # -- letterbox (v3) path ------------------------------------------------
     def _letterbox_sample(self, index: int, rng: np.random.Generator,
@@ -179,10 +194,22 @@ class YoloTxtDataset:
         else:
             boxes = np.zeros((0, 5), np.float32)
 
+        geom = None
         if self.augment:
-            im, boxes = A.random_affine(im, boxes, rng,
-                                        degrees=0.0, translate=0.1,
-                                        scale=0.5, shear=0.0)
+            if self.device_geom:
+                # random_affine's draws, but the pixels ship un-warped: the
+                # train step warps them (scale + translate; no rotation or
+                # shear in this recipe)
+                m, s, _ = A.draw_affine_params(
+                    im.shape[:2], rng, degrees=0.0, translate=0.1,
+                    scale=0.5, shear=0.0)
+                boxes = A.affine_boxes(boxes, m, s, size, size)
+                geom = np.array([m[0, 0], m[1, 1], m[0, 2], m[1, 2]],
+                                np.float32)
+            else:
+                im, boxes = A.random_affine(im, boxes, rng,
+                                            degrees=0.0, translate=0.1,
+                                            scale=0.5, shear=0.0)
 
         # back to normalized cxcywh (+ clip, like xyxy2xywhn(clip=True))
         hh, ww = im.shape[:2]
@@ -200,14 +227,18 @@ class YoloTxtDataset:
 
         if rng_px is not None:
             # reference order: geometry -> Albumentations wrapper -> HSV ->
-            # flip
+            # flip. Under device_geom the (p=0.01) pixel ops land before
+            # the warp, which they commute with up to one interpolation
             im = A.pixel_ops(im, rng_px)
-        if self.augment:
+        if self.augment and self.photometric:
             im = A.augment_hsv(im, rng)
             if rng.random() < 0.5:
                 im, out = self._flip_bgr(im, out)
 
-        return self._finalize(im, bgr=True), out
+        im = self._finalize(im, bgr=True)
+        if self.device_geom:
+            return im, out, (geom if geom is not None else IDENTITY_GEOM)
+        return im, out
 
     def _finalize(self, im, bgr: bool = False):
         """uint8 bytes for the device-normalize path, or float32 in [0,1].
@@ -228,8 +259,44 @@ class YoloTxtDataset:
         return im, boxes
 
     # -- simple (v1/v2/v4-tiny) path -----------------------------------------
+    def _load_square_cached(self, index: int):
+        """(square S x S RGB image, (h0, w0), labels) for the simple
+        pipeline's device-geometry path: the square resize ships, and the
+        crop rect is drawn in original (h0, w0) coordinates."""
+        if self._cache is not None and index in self._cache:
+            return self._cache[index]
+        path = self.imgs[index]
+        im = cv2.imread(path)
+        if im is None:
+            raise FileNotFoundError(f"image not found: {path}")
+        im = cv2.cvtColor(im, cv2.COLOR_BGR2RGB)
+        h0, w0 = im.shape[:2]
+        size = self.input_size
+        im = cv2.resize(im, (size, size), interpolation=cv2.INTER_LINEAR)
+        entry = (im, (h0, w0), read_yolo_labels(label_path_for(path)))
+        if self._cache is not None:
+            self._cache[index] = entry
+        return entry
+
     def _simple_sample(self, index: int, rng: np.random.Generator):
         size = self.input_size
+        if self.augment and self.device_geom:
+            # resize, then crop on the device: the square-resized image
+            # ships and the RandomResizedCrop rect becomes an anisotropic
+            # separable warp. Same draws and box math as
+            # random_resized_crop (in original coordinates), so labels
+            # equal the host path's; pixels pay one more interpolation.
+            im, (h0, w0), labels = self._load_square_cached(index)
+            boxes = np.zeros((len(labels), 5), np.float32)
+            if len(labels):
+                boxes[:, :4] = labels[:, 1:5]
+                boxes[:, 4] = labels[:, 0]
+            x0, y0, cw, ch = A.draw_rrc_params(h0, w0, rng)
+            boxes = A.rrc_boxes(boxes, x0, y0, cw, ch, h0, w0)
+            geom = np.array([w0 / cw, h0 / ch,
+                             -x0 * size / cw, -y0 * size / ch], np.float32)
+            return self._finalize(im), boxes, geom
+
         path = self.imgs[index]
         im = cv2.imread(path)
         if im is None:
@@ -243,17 +310,21 @@ class YoloTxtDataset:
             boxes[:, 4] = labels[:, 0]
 
         if self.augment:
-            if rng.random() < 0.5:
-                im, boxes = A.hflip(im, boxes)
-            if rng.random() < 0.5:
-                im = A.clahe(im)
-            if rng.random() < 0.5:
-                im = A.color_jitter(im, rng)
+            if self.photometric:
+                if rng.random() < 0.5:
+                    im, boxes = A.hflip(im, boxes)
+                if rng.random() < 0.5:
+                    im = A.clahe(im)
+                if rng.random() < 0.5:
+                    im = A.color_jitter(im, rng)
             im, boxes = A.random_resized_crop(im, boxes, rng, size)
         else:
             im = cv2.resize(im, (size, size), interpolation=cv2.INTER_LINEAR)
 
-        return self._finalize(im), boxes
+        im = self._finalize(im)
+        if self.device_geom:
+            return im, boxes, IDENTITY_GEOM
+        return im, boxes
 
 
 def build_datasets(cfg: dict):
@@ -264,15 +335,17 @@ def build_datasets(cfg: dict):
         "pipeline",
         "letterbox" if cfg["model"] in ("yolov3", "yolov4") else "simple"
     )
-    for key in ("device_augment", "device_geom"):
-        if cfg.get(key):
-            raise NotImplementedError(f"{key} {_DEVICE_AUG}")
     cache = bool(cfg.get("cache_images", False))
     u8 = bool(cfg.get("uint8_batches", True))
+    photometric = not bool(cfg.get("device_augment", False))
+    device_geom = bool(cfg.get("device_geom", False))
+    if device_geom and photometric:
+        raise ValueError("device_geom: true requires device_augment: true")
     train = YoloTxtDataset(cfg["train_list"], cfg["input_size"], True,
                            pipeline, mosaic=float(cfg.get("mosaic", 0.0)),
                            copy_paste=float(cfg.get("copy_paste", 0.0)),
                            cache_images=cache, output_uint8=u8,
+                           photometric=photometric, device_geom=device_geom,
                            pixel_ops=bool(cfg.get("pixel_ops", True)))
     val = YoloTxtDataset(cfg["val_list"], cfg["input_size"], False, pipeline,
                          cache_images=cache, output_uint8=u8)

@@ -164,8 +164,13 @@ class Loader:
                         annots = pad_annotations(
                             [s[1] for s in samples], self.max_annots
                         )
-                        q.put({"img": imgs, "annot": annots,
-                               "n_valid": n_valid})
+                        batch = {"img": imgs, "annot": annots,
+                                 "n_valid": n_valid}
+                        if len(samples[0]) > 2:
+                            # device_geom: per-sample (sx, sy, bx, by) rows
+                            batch["geom"] = np.stack(
+                                [s[2] for s in samples])
+                        q.put(batch)
             except BaseException as exc:  # propagate to the consumer
                 q.put(exc)
             else:

@@ -26,8 +26,12 @@ bare ``nn.Conv2d`` at ``<conv>`` (RetinaNet's FPN and subnet convs, a flax
 ``nn.Conv`` with a bias outside a ``ConvBnAct``), so they need the model's
 conv paths (:func:`conv_paths`).
 
-Any key the mapping does not cover, and any key missing on either side,
-raises.
+Any key the mapping does not cover raises. So does any key missing on
+either side, unless ``allow_partial=True`` (cfg ``backbone_pretrained``,
+``podtpu``'s ``load_npz_weights(allow_partial=True)``): then the model's
+keys the file lacks keep their values, the file's keys with no place in the
+model are ignored, and one line says how many were loaded. A shape mismatch
+always raises.
 """
 
 from __future__ import annotations
@@ -103,8 +107,11 @@ def _to_numpy(layout: str | None, t: torch.Tensor) -> np.ndarray:
 
 
 def state_dict_from_flat(model: torch.nn.Module,
-                         flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """``podtpu`` flat weights -> a complete state_dict for ``model``."""
+                         flat: dict[str, np.ndarray],
+                         allow_partial: bool = False
+                         ) -> dict[str, torch.Tensor]:
+    """``podtpu`` flat weights -> a state_dict for ``model``: complete, or
+    with ``allow_partial`` the keys ``flat`` has."""
     own, convs = model.state_dict(), conv_paths(model)
     out, used, missing = {}, set(), []
     for name, ref in own.items():
@@ -119,6 +126,8 @@ def state_dict_from_flat(model: torch.nn.Module,
                              f"{tuple(t.shape)} vs port {tuple(ref.shape)}")
         out[name] = t
         used.add(key)
+    if allow_partial:
+        return out
     if missing:
         raise KeyError(f"{len(missing)} weight(s) missing, e.g. {missing[:3]}")
     extra = sorted(set(flat) - used)
@@ -137,14 +146,23 @@ def flat_from_state_dict(model: torch.nn.Module) -> dict[str, np.ndarray]:
     return out
 
 
-def load_flat_weights(model: torch.nn.Module,
-                      flat: dict[str, np.ndarray]) -> torch.nn.Module:
-    model.load_state_dict(state_dict_from_flat(model, flat), strict=True)
+def load_flat_weights(model: torch.nn.Module, flat: dict[str, np.ndarray],
+                      allow_partial: bool = False, source: str = "weights"
+                      ) -> torch.nn.Module:
+    """``flat`` into ``model``; with ``allow_partial`` the keys it has,
+    printing ``podtpu``'s "partial load" line when some are missing."""
+    sd = state_dict_from_flat(model, flat, allow_partial)
+    model.load_state_dict(sd, strict=not allow_partial)
+    n_total = len(model.state_dict())
+    if allow_partial and len(sd) < n_total:
+        print(f"partial load: {len(sd)}/{n_total} leaves loaded from "
+              f"{source}, {n_total - len(sd)} kept at init")
     return model
 
 
-def load_npz_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+def load_npz_weights(model: torch.nn.Module, path: str,
+                     allow_partial: bool = False) -> torch.nn.Module:
     """Load a ``podtpu`` ``save_npz_weights`` file into ``model``."""
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
-    return load_flat_weights(model, flat)
+    return load_flat_weights(model, flat, allow_partial, source=path)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from podtpu_torch.ops.boxes import bbox_iou
+from podtpu_torch.ops.boxes import bbox_iou, tie_abs, tie_max0
 
 
 def smooth_bce(eps: float) -> tuple[float, float]:
@@ -14,9 +14,11 @@ def smooth_bce(eps: float) -> tuple[float, float]:
 
 
 def bce_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Elementwise binary cross-entropy on raw logits, in the stable form."""
-    return (logits.clamp_min(0.0) - logits * targets
-            + torch.log1p(torch.exp(-logits.abs())))
+    """Elementwise binary cross-entropy on raw logits, in the stable form.
+    ``max`` and ``abs`` take ``jnp.maximum``'s and ``jnp.abs``'s
+    subgradients at 0 (half to each side; +1), as ``podtpu``'s do."""
+    return (tie_max0(logits) - logits * targets
+            + torch.log1p(torch.exp(-tie_abs(logits))))
 
 
 def masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

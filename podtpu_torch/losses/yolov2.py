@@ -16,7 +16,7 @@ import torch
 
 from podtpu_torch.losses.common import bce_logits, masked_ciou_loss, masked_sum
 from podtpu_torch.ops.assign import encode_anchor_targets
-from podtpu_torch.ops.boxes import WH_CLAMP
+from podtpu_torch.ops.boxes import WH_CLAMP, tie_clamp
 
 
 def yolov2_loss_v2(pred: torch.Tensor, target: torch.Tensor,
@@ -37,7 +37,7 @@ def yolov2_loss_v2(pred: torch.Tensor, target: torch.Tensor,
                               ignore_threshold, cls_accumulate=True)
 
     pbox = torch.cat([torch.sigmoid(xy),
-                      torch.exp(wh.clamp(-WH_CLAMP, WH_CLAMP))], dim=-1)
+                      torch.exp(tie_clamp(wh, WH_CLAMP))], dim=-1)
     box_loss = lambda_coord * masked_ciou_loss(pbox, t.tbox, t.mask)
     pconf = torch.sigmoid(conf)
     object_loss = lambda_obj * ((pconf * t.mask - t.tconf) ** 2).sum()

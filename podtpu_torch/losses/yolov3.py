@@ -21,7 +21,7 @@ from podtpu_torch.losses.common import (
     smooth_bce,
 )
 from podtpu_torch.ops.assign import encode_anchor_targets
-from podtpu_torch.ops.boxes import WH_CLAMP
+from podtpu_torch.ops.boxes import WH_CLAMP, tie_clamp
 
 # the recipe's term weights, ignore threshold and label smoothing
 LAMBDA_COORD, LAMBDA_OBJ, LAMBDA_NOOBJ, LAMBDA_CLASS = 10.0, 5.0, 1.0, 1.0
@@ -64,7 +64,7 @@ def yolov3_loss_v2(preds, target: torch.Tensor, num_classes: int, anchors,
         t = _layer_targets(target, num_classes, anchors, input_size,
                            layer_idx, w, h, cls_pos, cls_neg)
         pbox = torch.cat([torch.sigmoid(xy),
-                          torch.exp(wh.clamp(-WH_CLAMP, WH_CLAMP))], dim=-1)
+                          torch.exp(tie_clamp(wh, WH_CLAMP))], dim=-1)
         box_loss = LAMBDA_COORD * masked_ciou_loss(pbox, t.tbox, t.mask)
         pconf = torch.sigmoid(conf)
         object_loss = LAMBDA_OBJ * ((pconf * t.mask - t.tconf) ** 2).sum()

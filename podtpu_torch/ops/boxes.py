@@ -17,6 +17,26 @@ _EPS = 1e-6
 WH_CLAMP = 15.0
 
 
+# JAX's subgradients at a tie, which torch's clamp and abs do not take:
+# jnp.maximum / jnp.clip give each side half the gradient where the two are
+# equal (torch.maximum does too; clamp passes it whole), and jnp.abs has
+# derivative 1 at 0 (torch's abs has 0).
+def tie_max0(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(x, 0)``, its gradient halved at 0."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
+def tie_clamp(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """``jnp.clip(x, -bound, bound)``, its gradient halved at the bounds."""
+    return torch.minimum(torch.maximum(x, x.new_full((), -bound)),
+                         x.new_full((), bound))
+
+
+def tie_abs(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.abs(x)``, with derivative 1 at 0."""
+    return torch.where(x >= 0, x, -x)
+
+
 def cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
     """[..., 4] center-format boxes -> corner format."""
     cx, cy, w, h = boxes.unbind(-1)
@@ -41,10 +61,10 @@ def pairwise_iou(boxes1_xyxy: torch.Tensor,
     """All-pairs IoU: [..., N, 4] x [..., M, 4] -> [..., N, M] (corner format)."""
     b1 = boxes1_xyxy[..., :, None, :]
     b2 = boxes2_xyxy[..., None, :, :]
-    inter_w = (torch.minimum(b1[..., 2], b2[..., 2])
-               - torch.maximum(b1[..., 0], b2[..., 0])).clamp_min(0.0)
-    inter_h = (torch.minimum(b1[..., 3], b2[..., 3])
-               - torch.maximum(b1[..., 1], b2[..., 1])).clamp_min(0.0)
+    inter_w = tie_max0(torch.minimum(b1[..., 2], b2[..., 2])
+                       - torch.maximum(b1[..., 0], b2[..., 0]))
+    inter_h = tie_max0(torch.minimum(b1[..., 3], b2[..., 3])
+                       - torch.maximum(b1[..., 1], b2[..., 1]))
     inter = inter_w * inter_h
     area1 = box_area(boxes1_xyxy)[..., :, None]
     area2 = box_area(boxes2_xyxy)[..., None, :]
@@ -60,13 +80,11 @@ def bbox_iou(boxes1: torch.Tensor, boxes2: torch.Tensor, GIoU: bool = False,
     b1x1, b1y1, b1x2, b1y2 = boxes1.split(1, dim=-1)
     b2x1, b2y1, b2x2, b2y2 = boxes2.split(1, dim=-1)
 
-    inter_w = (torch.minimum(b1x2, b2x2)
-               - torch.maximum(b1x1, b2x1)).clamp_min(0.0)
-    inter_h = (torch.minimum(b1y2, b2y2)
-               - torch.maximum(b1y1, b2y1)).clamp_min(0.0)
+    inter_w = tie_max0(torch.minimum(b1x2, b2x2) - torch.maximum(b1x1, b2x1))
+    inter_h = tie_max0(torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1))
     inter = inter_w * inter_h
-    area1 = ((b1x2 - b1x1) * (b1y2 - b1y1)).abs()
-    area2 = ((b2x2 - b2x1) * (b2y2 - b2y1)).abs()
+    area1 = tie_abs((b1x2 - b1x1) * (b1y2 - b1y1))
+    area2 = tie_abs((b2x2 - b2x1) * (b2y2 - b2y1))
     union = area1 + area2 - inter + _EPS
     iou = inter / union
     if not (GIoU or DIoU or CIoU):

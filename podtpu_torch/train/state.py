@@ -9,7 +9,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from podtpu_torch.export.weights import load_flat_weights
+from podtpu_torch.export.weights import load_flat_weights, load_npz_weights
 from podtpu_torch.models.factory import build_model
 from podtpu_torch.train.optim import (
     build_optimizer,
@@ -49,17 +49,18 @@ def create_train_state(cfg: dict, device: str | torch.device | None = None,
                        ) -> TrainState:
     """Build the model named in ``cfg`` in train mode on ``device`` (cuda by
     default) with its optimizer. ``weights``: ``podtpu``'s flat weights
-    (``export/weights.py``) to start from instead of PyTorch's init."""
+    (``export/weights.py``) to start from instead of PyTorch's init. Then
+    cfg ``backbone_pretrained`` (a ``podtpu`` ``.npz``, or '' for none) is
+    loaded over them partially: the keys it has, the rest kept."""
     if cfg.get("ema"):
         raise NotImplementedError("ema is not ported yet (ROADMAP.md queue "
                                   "1, train-step options)")
-    if cfg.get("backbone_pretrained"):
-        raise NotImplementedError("backbone_pretrained (partial weight load) "
-                                  "is not ported yet (ROADMAP.md queue 1, "
-                                  "trainer)")
     model = build_model(cfg, device, train=True)
     if weights is not None:
         load_flat_weights(model, weights)
+    pretrained = cfg.get("backbone_pretrained")
+    if pretrained:
+        load_npz_weights(model, pretrained, allow_partial=True)
     return TrainState(model, build_optimizer(cfg, model), build_schedule(cfg),
                       clip_norm=clip_grad_norm(cfg))
 

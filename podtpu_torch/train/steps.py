@@ -4,7 +4,9 @@
   card), target encoding and loss, backward and the optimizer update, all
   on the batch's device; ``make_multi_train_step``: K of them over a
   stacked group of batches with no host synchronisation between them
-  (cfg ``steps_per_dispatch``).
+  (cfg ``steps_per_dispatch``). With cfg ``device_geom`` / ``device_augment``
+  the step first warps and jitters the batch on its device
+  (``data/device_aug.py``).
 * ``make_serve_fn``: image batch -> detections. The whole postprocess stays
   on the batch's device: decode + padded NMS (whose suppression is the
   CUDA kernel on the card); only the [B, max_det, 6] survivors leave it.
@@ -19,8 +21,11 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
+from podtpu_torch.data.device_aug import make_device_augment, separable_affine
 from podtpu_torch.losses import build_loss
 from podtpu_torch.models.layers import BatchNormMixed, SeededDropout
 from podtpu_torch.ops.decode import (
@@ -191,10 +196,11 @@ def make_stats_step(cfg: dict) -> Callable:
     ``podtpu`` recovers the same numbers by inverting the EWMA,
     ``(new - m * old) / (1 - m)``; taking them directly skips that
     tenfold amplification of float32 rounding. The state is left as it
-    was: parameters, buffers and each module's train/eval flag."""
-    if cfg.get("device_geom"):
-        raise NotImplementedError("device_geom is not ported yet (ROADMAP.md "
-                                  "queue 1, item 8: device augmentation)")
+    was: parameters, buffers and each module's train/eval flag.
+
+    With cfg ``device_geom`` the batch is warped first (its ``geom`` rows),
+    so the statistics are those of the distribution training sees."""
+    device_geom = bool(cfg.get("device_geom", False))
 
     def stats_step(state, batch):
         model = state.model
@@ -214,7 +220,10 @@ def make_stats_step(cfg: dict) -> Callable:
                 m.stats_sink = sink_for(name)
             model.train()
             with torch.no_grad():
-                model(_as_input(batch["img"]))
+                img = _as_input(batch["img"])
+                if device_geom:
+                    img = separable_affine(img, batch["geom"])
+                model(img)
         finally:
             for _, m in bns:
                 m.stats_sink = None
@@ -230,12 +239,18 @@ def make_stats_step(cfg: dict) -> Callable:
 
 # cfg options of podtpu's train step that the port does not run yet
 _UNPORTED_STEP = {
-    "device_augment": "item 8: device augmentation",
-    "device_geom": "item 8: device augmentation",
     "remat_policy": "item 6: train-step options",
     "remat_backbone": "item 6: train-step options",
     "ema": "item 6: train-step options",
 }
+
+
+def augment_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s device-augmentation draws: stream 1 of
+    (cfg ``seed``, step), as ``podtpu`` draws them from
+    ``fold_in(fold_in(rng, step), 1)``."""
+    return int(np.random.SeedSequence([seed, step, 1])
+               .generate_state(1, np.uint64)[0])
 
 
 def make_train_step(cfg: dict) -> Callable:
@@ -243,8 +258,13 @@ def make_train_step(cfg: dict) -> Callable:
     :class:`podtpu_torch.train.state.TrainState`, updated in place.
 
     ``batch``: ``{"img": [B, H, W, 3] uint8 or float, "annot": [B, T, 5]}``
-    on the model's device. The BN running statistics move in the forward,
-    from the batch statistics of the parameters before the update."""
+    on the model's device, and with cfg ``device_geom`` ``"geom"`` [B, 4].
+    With ``device_geom`` the images are warped first
+    (:func:`separable_affine`); with ``device_augment`` they are then
+    jittered and flipped with draws from a generator on their device,
+    seeded from (cfg ``seed``, step). The BN running statistics move in
+    the forward, from the batch statistics of the parameters before the
+    update."""
     unported = [k for k in _UNPORTED_STEP if cfg.get(k)]
     if unported:
         raise NotImplementedError(
@@ -252,6 +272,9 @@ def make_train_step(cfg: dict) -> Callable:
             + "; ".join(sorted({_UNPORTED_STEP[k] for k in unported})) + ")")
     loss_fn = build_loss(cfg)
     seed = int(cfg.get("seed", 0))
+    device_aug = make_device_augment(cfg)
+    device_geom = bool(cfg.get("device_geom", False))
+    gens: dict = {}  # device -> the augmentation's torch.Generator
 
     def train_step(state, batch):
         model = state.model
@@ -261,11 +284,28 @@ def make_train_step(cfg: dict) -> Callable:
         for m in model.modules():
             if isinstance(m, SeededDropout):
                 m.reseed((seed << 32) + state.step)
-        preds = model(_as_input(batch["img"]))
-        loss = loss_fn(preds, batch["annot"])
+        img, annot = batch["img"], batch["annot"]
+        # the ranges name the step's parts in a profiler trace
+        # (utils/step_profile.py); outside one they cost a few us
+        with record_function("augment"):
+            if device_geom:
+                img = separable_affine(_as_input(img), batch["geom"])
+            if device_aug is not None:
+                gen = gens.get(img.device)
+                if gen is None:
+                    gen = gens[img.device] = torch.Generator(
+                        device=img.device)
+                gen.manual_seed(augment_seed(seed, state.step))
+                img, annot = device_aug(img, annot, gen)
+        with record_function("forward"):
+            preds = model(_as_input(img))
+        with record_function("loss"):
+            loss = loss_fn(preds, annot)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.apply_gradients()
+        with record_function("backward"):
+            loss.backward()
+        with record_function("optimizer"):
+            state.apply_gradients()
         return state, {"loss": loss.detach()}
 
     return train_step

@@ -30,11 +30,13 @@ import copy
 import os
 import shutil
 import sys
+import threading
 import time
 from typing import Callable
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from podtpu_torch import resolve_device
 from podtpu_torch.config import make_model_name
@@ -75,15 +77,37 @@ class CheckpointIO:
     rename-swapped over the old one, so a kill at any point leaves a
     complete checkpoint under ``name``, ``name.staging`` or ``name.old``
     (``restore`` resolves the leftovers, preferring the newest).
+
+    Every write runs on a writer thread, one a target ("last", "best",
+    "swa", and one for the periodic ``epoch_<n>`` saves): a save first
+    drains its own target's pending write, while other targets' writes
+    keep overlapping. ``wait`` drains every target and swaps the staged
+    ones into place; it runs before any ``restore`` and at the end of
+    ``Trainer.fit``. A writer's error is raised at the next ``save`` or
+    ``wait``. By default ``save`` ends in ``wait``, so the checkpoint is
+    on disk when it returns.
+
+    ``async_save=True`` (cfg ``async_checkpoint``) returns before the disk
+    write: ``save`` first copies the state into one set of host buffers
+    (pinned for a card's tensors; one copy a tensor, waited for), so the
+    next in-place update cannot reach what is saved. Saves of a state no
+    tensor of which changed since the last copy (``last``, ``best`` and
+    ``epoch_<n>`` at one step) share that copy; a changed state first
+    drains the writers still reading the buffers.
     """
 
     def __init__(self, ckpt_dir: str, async_save: bool = False):
-        if async_save:
-            raise NotImplementedError("async_checkpoint is not ported yet "
-                                      "(ROADMAP.md queue 1, item 3: the "
-                                      "trainer)")
         self._ckpt_dir = os.path.abspath(ckpt_dir)
         os.makedirs(self._ckpt_dir, exist_ok=True)
+        self._async = bool(async_save)
+        self._writers: dict[str, threading.Thread] = {}  # target -> writer
+        # the host copy: its buffers, the (storage, version) of each tensor
+        # it holds (and the tensors, so no storage is freed and reused
+        # while the stamp names it), and the targets whose writers read it
+        self._host: dict = {"buffers": [], "stamp": None, "sources": [],
+                            "readers": set()}
+        self._staged: set[str] = set()  # named targets written, not swapped
+        self._errors: list = []  # (path, exception) from the writers
 
     def _path(self, name: str) -> str:
         return os.path.join(self._ckpt_dir, name)
@@ -124,26 +148,104 @@ class CheckpointIO:
         shutil.rmtree(target, ignore_errors=True)
         os.rename(tmp, target)
 
+    def _raise_errors(self):
+        if self._errors:
+            path, exc = self._errors.pop(0)
+            raise RuntimeError(f"the checkpoint write of {path} failed") \
+                from exc
+
+    def _drain(self, key: str):
+        writer = self._writers.pop(key, None)
+        if writer is not None:
+            writer.join()
+
+    def wait(self):
+        """Block until every pending write is on disk, swap the staged
+        named targets into place, and raise a writer's error."""
+        for key in list(self._writers):
+            self._drain(key)
+        for name in list(self._staged):
+            self._staged.discard(name)
+            self._finalize(name)
+        self._raise_errors()
+
+    def _to_host(self, key: str, payload: dict) -> dict:
+        """``payload`` with every tensor in the host buffers, which ``key``'s
+        writer then reads: copied there (the copies waited for) unless they
+        already hold these tensors at their current version."""
+        leaves, spec = tree_flatten(payload)
+        tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
+        stamp = [(t.device, t.data_ptr(), t._version) for t in tensors]
+        host = self._host
+        if stamp != host["stamp"]:
+            for reader in host["readers"]:
+                self._drain(reader)
+            host["readers"].clear()
+            if [(b.shape, b.dtype) for b in host["buffers"]] != [
+                    (t.shape, t.dtype) for t in tensors]:
+                host["buffers"] = [
+                    torch.empty(t.shape, dtype=t.dtype,
+                                pin_memory=t.device.type == "cuda")
+                    for t in tensors]
+            for buf, t in zip(host["buffers"], tensors):
+                buf.copy_(t.detach(), non_blocking=t.device.type == "cuda")
+            if any(t.device.type == "cuda" for t in tensors):
+                torch.cuda.synchronize()
+            host["stamp"], host["sources"] = stamp, tensors
+        host["readers"].add(key)
+        it = iter(host["buffers"])
+        return tree_unflatten([next(it) if isinstance(x, torch.Tensor)
+                               else x for x in leaves], spec)
+
+    def _write_in_background(self, key: str, target: str, payload: dict):
+        def run():
+            try:
+                self._write(target, payload)
+            except BaseException as exc:  # raised at the next save or wait
+                self._errors.append((target, exc))
+
+        writer = threading.Thread(target=run, name=f"checkpoint-{key}",
+                                  daemon=True)
+        self._writers[key] = writer
+        writer.start()
+
     def save(self, name: str, state: TrainState):
+        self._raise_errors()
         payload = {
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "step": int(state.step),
         }
-        if name in _STAGED:
-            # a leftover staging dir (a save that died before its swap) is
-            # complete: swap it in, then stage the new save over it
+        staged = name in _STAGED
+        key = name if staged else "periodic"
+        # this target's pending write must end before its files are reused
+        self._drain(key)
+        self._raise_errors()
+        if staged:
+            # the previous (or a leftover) staging dir is complete: swap it
+            # in, then stage the new save over it
+            self._staged.discard(name)
             self._finalize(name)
-            self._write(self._path(name) + ".staging", payload)
-            self._finalize(name)
-        else:
-            self._write(self._path(name), payload)
+        target = self._path(name) + (".staging" if staged else "")
+        if self._async:
+            host = self._to_host(key, payload)
+            # the module tree's version tags, which load_state_dict reads
+            host["model"]._metadata = getattr(payload["model"], "_metadata",
+                                              {})
+            payload = host
+        self._write_in_background(key, target, payload)
+        if staged:
+            self._staged.add(name)
+        if not self._async:
+            self.wait()
 
     def prune_periodic(self, keep: int):
         """Keep only the newest ``keep`` periodic ``epoch_<n>`` checkpoints
         (cfg ``keep_checkpoints``; ``last``/``best``/``swa`` are never
-        pruned). Only complete directories count (temporary ``*.tmp-*``
-        ones do not match). Newness is the parsed epoch number, not the
+        pruned). Only complete directories count: a write in flight is a
+        temporary ``*.tmp-*`` directory, never deleted or counted, so under
+        ``async_checkpoint`` up to ``keep + 1`` periodic directories exist
+        until it lands. Newness is the parsed epoch number, not the
         name string (lexicographic order inverts past epoch 9999)."""
         import re
 
@@ -160,7 +262,9 @@ class CheckpointIO:
 
     def restore(self, path: str, state: TrainState) -> TrainState:
         """Restore parameters, BN statistics, the optimizer's state (momentum
-        buffers onto the parameters' device) and the step into ``state``."""
+        buffers onto the parameters' device) and the step into ``state``,
+        after every pending write has landed."""
+        self.wait()
         payload = _load_payload(path, state)
         state.model.load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
@@ -214,6 +318,12 @@ def restore_eval_weights(path: str, state: TrainState, cfg: dict,
     return restore_weights(path, state, use_ema=bool(use_ema))
 
 
+def put_batch(batch: dict, device: torch.device) -> dict:
+    """The host batch's arrays as tensors on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
 def put_group(batches: list[dict], device: torch.device) -> dict:
     """K host batches as ``[K, B, ...]`` tensors on ``device``: each key
     stacked once on the host, into pinned memory when the device is a
@@ -233,7 +343,6 @@ def put_group(batches: list[dict], device: torch.device) -> dict:
 # cfg options of podtpu's Trainer that the port does not run yet
 _UNPORTED = {
     "ema": "item 6: train-step options",
-    "async_checkpoint": "item 3: the trainer",
 }
 
 
@@ -267,7 +376,8 @@ class Trainer:
         # eval-only consumers don't create run directories or checkpoints
         self.run_dir = None if eval_only else (run_dir or make_run_dir(cfg))
         self.ckpt = (None if eval_only else
-                     CheckpointIO(os.path.join(self.run_dir, "checkpoints")))
+                     CheckpointIO(os.path.join(self.run_dir, "checkpoints"),
+                                  bool(cfg.get("async_checkpoint", False))))
         self._writer = None
         self.history: list[dict] = []
         self.log(
@@ -295,11 +405,6 @@ class Trainer:
 
                 self._writer = _Null()
         return self._writer
-
-    def _put(self, batch: dict) -> dict:
-        """The host batch's arrays as tensors on ``self.device``."""
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items()}
 
     def fit(self, train_loader, val_loader, epochs: int | None = None,
             start_epoch: int = 0):
@@ -363,7 +468,7 @@ class Trainer:
                         losses.extend(metrics["loss"].unbind(0))
                     else:
                         self.state, metrics = self.train_step(
-                            self.state, self._put(batch))
+                            self.state, put_batch(batch, self.device))
                         losses.append(metrics["loss"])
                     if preempt.is_set():
                         break
@@ -378,12 +483,13 @@ class Trainer:
                 # the single step, so that no sample is lost
                 for batch in pending:
                     self.state, metrics = self.train_step(
-                        self.state, self._put(batch))
+                        self.state, put_batch(batch, self.device))
                     losses.append(metrics["loss"])
                 if progress:
                     sys.stdout.write("\r\033[K")
                 if preempt.is_set():
                     self.ckpt.save("last", self.state)
+                    self.ckpt.wait()  # durable before the process may end
                     self.log(f"SIGTERM: saved preemption checkpoint 'last' at "
                              f"step {self.state.step}; stopping "
                              f"(resume with --resume .../checkpoints/last)")
@@ -462,6 +568,7 @@ class Trainer:
             self.ckpt.save("swa", swa_state)
             self.log(f"saved SWA weights (averaged over {swa_count} epochs, "
                      f"BN recalibrated over {n_recal} batches)")
+        self.ckpt.wait()  # drain any pending asynchronous checkpoint write
         self.writer.flush()
         self.log(f"fit done in {time.time() - t_start:.1f}s")
         return self.history
@@ -494,7 +601,7 @@ class Trainer:
             if n >= num_batches:
                 break
             batch.pop("n_valid", None)
-            raw = stats_step(state, self._put(batch))
+            raw = stats_step(state, put_batch(batch, self.device))
             n += 1
             if acc is None:
                 acc = raw
@@ -520,7 +627,8 @@ class Trainer:
         val_loader.set_epoch(0)
         batch = next(iter(val_loader))
         batch.pop("n_valid", None)
-        _, dets, valid = self.eval_step(self.state, self._put(batch))
+        _, dets, valid = self.eval_step(self.state,
+                                        put_batch(batch, self.device))
         dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
         imgs = np.asarray(batch["img"][:n_img])
         if imgs.dtype != np.uint8:
@@ -554,7 +662,8 @@ class Trainer:
         val_loader.set_epoch(0)
         for batch in val_loader:
             n_valid = batch.pop("n_valid", batch["img"].shape[0])
-            loss, dets, valid = self.eval_step(self.state, self._put(batch))
+            loss, dets, valid = self.eval_step(
+                self.state, put_batch(batch, self.device))
             losses.append(float(loss))
             # a padded final batch repeats its last sample: slice them off
             self.map_metric.update_state(batch["annot"][:n_valid],

@@ -6,6 +6,8 @@ podtpu, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -400,3 +402,149 @@ def test_retinanet_serving_and_clipped_step_on_the_card(cuda):
         assert boxes.shape[1] == 512 and bool(ok.any())
         assert torch.equal(greedy_suppress(boxes, ok, 0.45),
                            greedy_suppress_reference(boxes, ok, 0.45))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hsv", ["exact", "approx"])
+def test_device_augment_on_the_card_matches_the_cpu(cuda, hsv):
+    """The draw on the card (no host tensor, no sync), the apply there
+    against the same draws on the CPU: the exact path bit for bit, the
+    approximate one to 1e-5; the warp to 1e-4 with TF32 off."""
+    from podtpu_torch.data import device_aug as T
+
+    r = np.random.default_rng(5)
+    img = torch.from_numpy(r.integers(0, 256, (8, 96, 96, 3), dtype=np.uint8))
+    annot = torch.from_numpy(np.concatenate([
+        r.uniform(0.1, 0.9, (8, 6, 5)), -np.ones((8, 2, 5))], 1)
+        .astype(np.float32))
+    geom = torch.tensor([[1.2, 1.2, -5.0, -3.0]] * 4
+                        + [[0.8, 0.7, 6.0, 4.5]] * 4)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    gains, flips = T.draw_augment(8, gen)
+    assert gains.device.type == flips.device.type == "cuda"
+    got = T.apply_augment(img.to(cuda), annot.to(cuda), gains, flips, hsv)
+    want = T.apply_augment(img, annot, gains.cpu(), flips.cpu(), hsv)
+    if hsv == "exact":
+        assert torch.equal(got[0].cpu(), want[0])
+    else:
+        assert (got[0].cpu() - want[0]).abs().max() <= 1e-5
+    assert torch.equal(got[1].cpu(), want[1])
+    assert not torch.backends.cuda.matmul.allow_tf32
+    x = img.float() / 255.0
+    warp = T.separable_affine(x.to(cuda), geom.to(cuda))
+    assert (warp.cpu() - T.separable_affine(x, geom)).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_async_checkpoint_of_a_card_state(cuda, tmp_path):
+    """An async save copies the card's tensors into pinned host buffers
+    before it returns: an in-place update after it does not reach the
+    file, which restores to the state as it was."""
+    from podtpu_torch.train.state import TrainState
+    from podtpu_torch.train.trainer import CheckpointIO
+
+    torch.manual_seed(0)
+    model = torch.nn.Conv2d(3, 8, 3).to(cuda)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    model(torch.randn(2, 3, 8, 8, device=cuda)).sum().backward()
+    opt.step()
+    state = TrainState(model, opt, lambda s: 0.1, step=7)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    io = CheckpointIO(str(tmp_path), async_save=True)
+    io.save("last", state)
+    assert all(b.is_pinned() for b in io._host["buffers"])
+    with torch.no_grad():
+        model.weight.add_(1.0)
+    io.wait()
+    other = torch.nn.Conv2d(3, 8, 3).to(cuda)
+    fresh = TrainState(other, torch.optim.SGD(other.parameters(), lr=0.1,
+                                              momentum=0.9), lambda s: 0.1)
+    io.restore(str(tmp_path / "last"), fresh)
+    assert fresh.step == 7
+    for k, v in fresh.model.state_dict().items():
+        assert v.device.type == "cuda" and torch.equal(v, before[k]), k
+
+
+_CONV_KERNEL = re.compile(r"conv|gemm|xmma|cudnn|cutlass|dgrad|wgrad|nchw|nhwc",
+                          re.IGNORECASE)
+
+
+@pytest.mark.cuda
+def test_step_profile_splits_the_backward_on_the_card(cuda):
+    """The step profile's attribution on the card (each kernel through the
+    operator that launched it, and the fallback) against a split found
+    without it, on a ConvBnAct stack trained in float32: the backward's
+    kernels are the ones between the host's pauses after the forward and
+    after the backward, and among them the convolution kernels are found
+    by name, the ReLU's by its threshold kernel, and the rest are the
+    autograd of BatchNormMixed (the loss, a sum, launches one
+    one-element fill). Each row of (c) holds its share to 5% of the
+    backward's device time."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from podtpu_torch.models.layers import ConvBnAct
+    from podtpu_torch.utils.step_profile import (
+        _device_events,
+        _ModuleRanges,
+        attribute,
+    )
+
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(
+        ConvBnAct(3, 32), ConvBnAct(32, 64, strides=2), ConvBnAct(64, 64),
+        ConvBnAct(64, 64)).to(cuda).train()
+    x = torch.randn(8, 3, 128, 128, device=cuda)
+
+    def step():
+        with record_function("forward"):
+            y = model(x)
+        with record_function("loss"):
+            loss = y.sum()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        with record_function("backward"):
+            loss.backward()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        model.zero_grad(set_to_none=True)
+
+    for _ in range(2):
+        step()
+    ranges = _ModuleRanges(model)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+    ranges.remove()
+    results = prof.profiler.kineto_results
+    views = attribute(prof.events(), results.events(),
+                      results.trace_start_ns())
+
+    # the device's work in runs split by the pauses: forward, backward, ...
+    dev = sorted(_device_events(results.events(), results.trace_start_ns()),
+                 key=lambda d: d[1])
+    runs, end = [], -np.inf
+    for name, start, stop, _ in dev:
+        if start - end > 10e3:  # us
+            runs.append([])
+        runs[-1].append((name, stop - start))
+        end = max(end, stop)
+    assert len(runs) == 6, [len(r) for r in runs]
+    back = [k for r in runs[1::2] for k in r]
+    total = sum(us for _, us in back)
+    want = {"conv": sum(us for n, us in back if _CONV_KERNEL.search(n)),
+            "activation": sum(us for n, us in back if "threshold" in n)}
+    want["bn"] = total - want["conv"] - want["activation"]
+    got = {k: v * 1e3 for k, v in views["backward_by_node_ms"].items()}
+    detail = {"want_us": want, "got_us": got, "total_us": total,
+              "fallback_ms": views["fallback_ms"],
+              "kernels": sorted({n[:90] for n, _ in back})}
+    assert views["coverage"] >= 0.99, detail
+    assert views["parts_ms"]["backward"] * 1e3 == pytest.approx(
+        total, rel=0.01), detail
+    assert want["conv"] > 0 and want["bn"] > 0, detail
+    for row in ("conv", "activation", "bn"):
+        assert abs(got.get(row, 0.0) - want[row]) <= 0.05 * total, \
+            (row, detail)

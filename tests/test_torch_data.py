@@ -262,20 +262,3 @@ def test_loader_close_joins_producer(synth):
     next(it)
     it.close()  # the generator's finally drains and joins the producer
     assert threading.active_count() <= before
-
-
-@pytest.mark.parametrize("make", [
-    lambda s: YoloTxtDataset(s["train_list"], 64, True, device_geom=True),
-    lambda s: YoloTxtDataset(s["train_list"], 64, True, photometric=False),
-    lambda s: build_datasets(dict(model="yolov3", input_size=64,
-                                  train_list=s["train_list"],
-                                  val_list=s["val_list"],
-                                  device_augment=True)),
-    lambda s: build_datasets(dict(model="yolov3", input_size=64,
-                                  train_list=s["train_list"],
-                                  val_list=s["val_list"],
-                                  device_augment=True, device_geom=True)),
-], ids=["device_geom", "no_photometric", "device_augment", "device_geom_cfg"])
-def test_unported_data_options_raise(synth, make):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        make(synth)

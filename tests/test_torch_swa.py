@@ -146,11 +146,6 @@ def test_stats_step_matches_podtpu_and_leaves_the_state(
         assert torch.equal(again[k], v), k
 
 
-def test_stats_step_unported_option_raises(synth, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_stats_step(recipe_cfg(synth, tmp_path, device_geom=True))
-
-
 # ---- recalibrate_bn -------------------------------------------------------
 
 def test_recalibrate_bn_matches_podtpu(synth, tmp_path, jax_stats_step,

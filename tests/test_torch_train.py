@@ -15,6 +15,8 @@ import torch
 from podtpu.data.loader import pad_annotations as podtpu_pad_annotations
 from podtpu.export.weights import load_npz_weights as podtpu_load_npz
 from podtpu.losses import build_loss as podtpu_build_loss
+from podtpu.losses.common import bce_logits as podtpu_bce_logits
+from podtpu.losses.focal import focal_loss as podtpu_focal_loss
 from podtpu.models.layers import BatchNormMixed as FlaxBatchNormMixed
 from podtpu.ops import boxes as jboxes
 from podtpu.ops.assign import encode_anchor_targets as podtpu_encode
@@ -25,6 +27,8 @@ from podtpu.train.steps import make_train_step as podtpu_make_train_step
 from podtpu_torch.data.loader import pad_annotations
 from podtpu_torch.export.weights import flat_from_state_dict
 from podtpu_torch.losses import build_loss
+from podtpu_torch.losses.common import bce_logits
+from podtpu_torch.losses.focal import focal_loss
 from podtpu_torch.models.layers import BatchNormMixed, ConvBnAct
 from podtpu_torch.ops import boxes as tboxes
 from podtpu_torch.ops.assign import encode_anchor_targets
@@ -184,6 +188,90 @@ def test_bbox_iou_matches_podtpu(kind):
     np.testing.assert_allclose(t1.grad.numpy(), wgrad, rtol=1e-4, atol=1e-5)
 
 
+# ---- exact ties: the subgradients jax.grad takes ---------------------------
+# jnp.maximum / jnp.clip halve the gradient where their two sides are equal
+# and jnp.abs has derivative 1 at 0; the port's losses take the same.
+
+def _tied_logits(r, shape):
+    x = r.normal(0, 2, shape).astype(np.float32)
+    x.flat[::3] = 0.0  # a third of the logits exactly at the tie
+    return x
+
+
+@pytest.mark.parametrize("loss", ["bce_logits", "focal_loss"])
+def test_loss_gradients_at_zero_logits_match_jax(loss):
+    r = np.random.default_rng(21)
+    x = _tied_logits(r, (6, 40))
+    t = (r.uniform(size=x.shape) < 0.5).astype(np.float32)
+    t[0] = 0.9  # a smoothed target too
+    jfn, tfn = {"bce_logits": (podtpu_bce_logits, bce_logits),
+                "focal_loss": (podtpu_focal_loss, focal_loss)}[loss]
+    wgrad = np.asarray(jax.grad(
+        lambda a: jnp.sum(jfn(a, jnp.asarray(t))))(jnp.asarray(x)))
+    tx = torch.tensor(x, requires_grad=True)
+    tfn(tx, torch.from_numpy(t)).sum().backward()
+    assert np.abs(tx.grad.numpy() - wgrad).max() <= 1e-6
+
+
+@pytest.mark.parametrize("kind", ["iou", "ciou"])
+def test_bbox_iou_gradients_of_touching_boxes_match_jax(kind):
+    # cxcywh pairs whose intersection width or height is exactly 0
+    b1 = np.array([[0.25, 0.5, 0.5, 1.0], [0.5, 0.25, 1.0, 0.5],
+                   [0.5, 0.5, 0.5, 0.5], [1.0, 2.0, 2.0, 2.0]], np.float32)
+    b2 = np.array([[0.75, 0.5, 0.5, 1.0], [0.5, 0.75, 1.0, 0.5],
+                   [1.0, 0.5, 0.5, 0.5], [3.0, 2.0, 2.0, 2.0]], np.float32)
+    kw = {"CIoU": True} if kind == "ciou" else {}
+    wgrad = np.asarray(jax.grad(lambda a: jnp.sum(jboxes.bbox_iou(
+        a, jnp.asarray(b2), **kw)))(jnp.asarray(b1)))
+    t1 = torch.tensor(b1, requires_grad=True)
+    tboxes.bbox_iou(t1, torch.from_numpy(b2), **kw).sum().backward()
+    assert np.abs(t1.grad.numpy() - wgrad).max() <= 1e-6
+
+
+def test_wh_clamp_gradient_at_its_bounds_matches_jax():
+    r = np.random.default_rng(22)
+    x = r.normal(0, 8, (64,)).astype(np.float32)
+    x[::4], x[1::4] = tboxes.WH_CLAMP, -tboxes.WH_CLAMP
+    c = r.normal(size=x.shape).astype(np.float32)
+    wgrad = np.asarray(jax.grad(lambda a: jnp.sum(jnp.asarray(c) * jnp.clip(
+        a, -tboxes.WH_CLAMP, tboxes.WH_CLAMP)))(jnp.asarray(x)))
+    tx = torch.tensor(x, requires_grad=True)
+    (torch.from_numpy(c) * tboxes.tie_clamp(tx, tboxes.WH_CLAMP)).sum() \
+        .backward()
+    assert np.abs(tx.grad.numpy() - wgrad).max() <= 1e-6
+
+
+@pytest.mark.parametrize("model", ["yolov2", "yolov3"])
+def test_loss_head_gradients_at_tied_inputs_match_podtpu(model):
+    """The whole loss with its class logits exactly 0 and its wh logits
+    exactly at +-WH_CLAMP where they are clamped."""
+    r = np.random.default_rng(23)
+    if model == "yolov3":
+        cfg = yolo_cfg("float32", 64)
+        shapes = [(2, s, s, 75) for s in (8, 4, 2)]
+    else:
+        cfg = dict(model="yolov2", num_classes=C, input_size=64,
+                   anchors=VOC_ANCHORS, scaled_anchors=VOC_SCALED_ANCHORS)
+        shapes = [(2, 2, 2, 125)]
+    heads = []
+    for shape in shapes:
+        h = (r.normal(0, 1, shape) * 0.5).astype(np.float32)
+        h = h.reshape(shape[:3] + (-1, 5 + C))
+        h[..., 5:] = 0.0
+        h[..., 2:4] = np.where(r.uniform(size=h[..., 2:4].shape) < 0.5,
+                               tboxes.WH_CLAMP, -tboxes.WH_CLAMP)
+        heads.append(h.reshape(shape))
+    annots = make_targets(2, 6, C, seed=24)
+    jloss = podtpu_build_loss(cfg)
+    pack = (lambda hs: hs) if model == "yolov3" else (lambda hs: hs[0])
+    wgrads = jax.grad(lambda hs: jloss(pack(hs), jnp.asarray(annots)))(
+        [jnp.asarray(h) for h in heads])
+    theads = [torch.tensor(h, requires_grad=True) for h in heads]
+    build_loss(cfg)(pack(theads), torch.from_numpy(annots)).backward()
+    for t, g in zip(theads, wgrads):
+        assert np.abs(t.grad.numpy() - np.asarray(g)).max() <= 1e-6
+
+
 def test_wh_iou_and_converters_match_podtpu():
     r = np.random.default_rng(12)
     wh1 = r.uniform(1, 50, (7, 2)).astype(np.float32)
@@ -313,9 +401,7 @@ def test_unported_optimizer_options_raise(opts):
         build_optimizer(cfg, _tiny_block())
 
 
-@pytest.mark.parametrize("extra", [{"device_augment": True},
-                                   {"device_geom": True},
-                                   {"remat_policy": "conv_out"},
+@pytest.mark.parametrize("extra", [{"remat_policy": "conv_out"},
                                    {"ema": True}])
 def test_unported_train_step_options_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -33,6 +33,7 @@ from podtpu_torch.train.steps import make_eval_step, make_serve_fn
 from podtpu_torch.train.trainer import (
     CheckpointIO,
     Trainer,
+    put_batch,
     restore_eval_weights,
     restore_weights,
 )
@@ -241,7 +242,7 @@ def test_eval_step_matches_podtpu(podtpu_run, tmp_path):
     state = trainer.state
     step = make_eval_step(cfg)
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
-    loss, dets, valid = step(state, trainer._put(batch))
+    loss, dets, valid = step(state, put_batch(batch, trainer.device))
     assert float(loss) == pytest.approx(j_loss, rel=1e-5)
     assert dets.shape == (4, 100, 6) and valid.dtype == torch.bool
     np.testing.assert_array_equal(valid.numpy(), j_valid)
@@ -310,8 +311,8 @@ def test_checkpoint_restore_is_bitwise(synth, tmp_path):
     train_loader, _ = make_loaders(cfg)
     for batch in train_loader:
         batch.pop("n_valid")
-        trainer.state, _ = trainer.train_step(trainer.state,
-                                              trainer._put(batch))
+        trainer.state, _ = trainer.train_step(
+            trainer.state, put_batch(batch, trainer.device))
     trainer.ckpt.save("last", trainer.state)
     trainer.ckpt.save("epoch_0000", trainer.state)
     saved = _state_tensors(trainer.state)
@@ -483,7 +484,7 @@ def test_early_stopping_counts_validation_rounds(synth, tmp_path,
 
 
 @pytest.mark.parametrize("extra", [
-    {"ema": {"decay": 0.999}}, {"async_checkpoint": True},
+    {"ema": {"decay": 0.999}},
 ], ids=lambda e: next(iter(e)))
 def test_unported_trainer_options_raise(synth, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):

@@ -596,13 +596,9 @@ _SHIPPED = sorted(f for f in os.listdir(os.path.join(REPO, "configs"))
 def test_shipped_configs_build_a_trainer(name, tmp_path):
     """Every shipped config of the two families builds a ``Trainer`` (full
     width, nothing run), with the K-step group where the config sets
-    ``steps_per_dispatch``; yolov4_synth.yaml sets ``device_augment`` and
-    raises, naming the ROADMAP item that ports it."""
+    ``steps_per_dispatch`` (yolov4_synth.yaml with its ``device_augment``
+    too)."""
     cfg = get_configs(os.path.join(REPO, "configs", name))
-    if cfg.get("device_augment"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            Trainer(cfg, device="cpu", log=quiet, run_dir=str(tmp_path))
-        return
     trainer = Trainer(cfg, device="cpu", log=quiet, run_dir=str(tmp_path))
     spd = int(cfg.get("steps_per_dispatch") or 1)
     assert trainer._spd == spd
