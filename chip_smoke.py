@@ -154,6 +154,27 @@ raising on failure:
    and the idle share, the backward by autograd node, the step by part
    and the forward by module; it fails where these cover less than 99%
    of the kernels' time.
+18. options: the serving and train-step options on
+   ``configs/yolov3_voc.yaml`` (416 px, bf16) with phase 3's weights.
+   Serving at B=8 and 64, one serve call each of ``nms_options`` merge,
+   agnostic, classes [0, 14], multi-label and ``tta`` (hflip, scales 0.83
+   and 0.67): the suppression launched once, its keep mask on the
+   option's own candidates equal to the plain version, the detections
+   of the card's NMS against the CPU's on the same candidates (valid
+   masks exactly, boxes within 1e-3: the merge's float32 product), ms
+   beside plain serving. Training at B=64, 1 + 3 steps each of the plain
+   recipe, adam, radam, adamw, SGD with ``flat``, ``accum_steps: 2``,
+   ``ema: true`` (the shadow against a float64 recomputation of the
+   blend), ``remat_policy`` conv_out and no_post_act and
+   ``remat_backbone`` (gradients and running statistics against the
+   plain step; conv_out and remat_backbone must lower the step's peak)
+   and ``qat`` (the stem launched 0 times), each with its stem launches,
+   ms and peak GB; ``skip_nonfinite: 2`` with a NaN pixel (the state bit
+   for bit, the count, the third bad step in a row applied, the BN
+   statistics kept finite) and its cost: ms and host synchronisations a
+   step with and without the guard. Then one epoch of phase 9's run with
+   ``ema: true`` and ``accum_steps: 2`` through ``train.run.train`` and
+   ``cli.test --use-ema`` on its ``best`` (the fit's own val_loss).
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -3004,6 +3025,367 @@ def profile_phase(fit, dev, card):
                              f"the busy time: {failed}")
 
 
+OPTION_SERVING = (
+    ("merge", {"nms_options": {"merge": True}}),
+    ("agnostic", {"nms_options": {"agnostic": True}}),
+    ("classes", {"nms_options": {"classes": [0, 14]}}),
+    ("multi_label", {"nms_options": {"multi_label": True}}),
+    ("tta", {"tta": {"hflip": True, "scales": [0.83, 0.67]}}),
+)
+# the merged boxes: a float32 [K, K] @ [K, 4] product, summed in another
+# order on the card than on the CPU
+MERGE_TOL = 1e-3
+
+
+def options_serving(cfg, flat, dev, images):
+    """Phase 18's serving: each option of ``OPTION_SERVING`` at B=8 and 64.
+    Returns (record, the launches of one serve call of each)."""
+    from podtpu_torch.export.weights import load_flat_weights
+    from podtpu_torch.models.factory import build_model
+    from podtpu_torch.ops.kernels.nms_kernel import (
+        greedy_suppress,
+        greedy_suppress_reference,
+    )
+    from podtpu_torch.ops.nms import _select_candidates
+    from podtpu_torch.train.steps import (
+        _as_input,
+        _decoder_and_nms,
+        make_candidates_fn,
+        make_serve_fn,
+    )
+
+    model = load_flat_weights(build_model(cfg, dev), flat)
+    thr = float(cfg["nms_iou_threshold"])
+    conf, top_k = float(cfg["conf_threshold"]), int(cfg["top_k_candidates"])
+    plain = make_serve_fn(cfg, model)
+    record, launches = {}, _counts()
+    for k in launches:
+        launches[k] = 0
+    for name, extra in OPTION_SERVING:
+        ocfg = dict(cfg, **extra)
+        nopts = ocfg.get("nms_options") or {}
+        classes = tuple(nopts["classes"]) if nopts.get("classes") else None
+        serve = make_serve_fn(ocfg, model)
+        decoder, nms = _decoder_and_nms(ocfg)
+        candidates = make_candidates_fn(ocfg, model, decoder)
+        for b, x8 in images.items():
+            x = _as_input(x8)
+            torch.cuda.synchronize()
+            _zero_counts()
+            dets, valid = serve(x)
+            torch.cuda.synchronize()
+            launches = _add_counts(launches, _counts())
+            calls = _counts()["greedy_suppress"]
+            with torch.inference_mode():
+                _, cands = candidates(x)
+                _, ok, boxes = _select_candidates(
+                    cands, conf, top_k, bool(nopts.get("agnostic")), classes)
+                boxes = boxes.contiguous()
+                keep = greedy_suppress(boxes, ok, thr)
+                want = greedy_suppress_reference(boxes, ok, thr)
+                got_d, got_v = nms(cands)
+                twin_d, twin_v = nms(cands.cpu())
+            iters = 10 if b == 8 else 3
+            rec = record.setdefault(name, {})[f"B{b}"] = {
+                "candidates": list(cands.shape), "valid": int(ok.sum()),
+                "kept": int(keep.sum()), "detections": int(valid.sum()),
+                "keep_mismatches": int((keep != want).sum()),
+                "valid_equal_twin": bool(torch.equal(got_v.cpu(), twin_v)),
+                "max_abs_err_twin": float(
+                    (got_d.cpu() - twin_d).abs().max()),
+                "suppress_launches": calls,
+                "finite": bool(torch.isfinite(dets).all()),
+                "ms": cuda_ms(lambda: serve(x), iters),
+                "plain_ms": cuda_ms(lambda: plain(x), iters),
+            }
+            rec["ok"] = (rec["keep_mismatches"] == 0 and rec["valid"] > 0
+                         and rec["valid_equal_twin"]
+                         and rec["max_abs_err_twin"] <= MERGE_TOL
+                         and calls == 1 and rec["finite"]
+                         and (name != "classes" or bool(
+                             torch.isin(dets[valid][:, 5].cpu(),
+                                        torch.tensor([0.0, 14.0])).all())))
+    del model
+    return record, launches
+
+
+OPTION_TRAINING = (
+    ("plain", {}),
+    ("adam", {"optimizer": "adam"}),
+    ("radam", {"optimizer": "radam"}),
+    ("adamw", {"optimizer": "adamw"}),
+    ("sgd_flat", {"optimizer_options": {"flat": True}}),
+    ("accum_steps_2", {"optimizer_options": {"accum_steps": 2}}),
+    ("ema", {"ema": True}),
+    ("remat_conv_out", {"remat_policy": "conv_out"}),
+    ("remat_no_post_act", {"remat_policy": "no_post_act"}),
+    ("remat_backbone", {"remat_backbone": True}),
+    ("qat", {"qat": True}),
+)
+
+
+def _option_cfg(cfg, extra):
+    out = dict(cfg, **{k: v for k, v in extra.items()
+                       if k != "optimizer_options"})
+    out["optimizer_options"] = dict(cfg["optimizer_options"],
+                                    **extra.get("optimizer_options", {}))
+    return out
+
+
+def _sync_count(fn) -> int:
+    """Host synchronisations in ``fn()``, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def options_training(cfg, flat, dev, steps=3):
+    """Phase 18's training: YOLOv3-416 bf16 at B=64, a few steps of each
+    ``OPTION_TRAINING`` entry and of ``skip_nonfinite``. Returns (record,
+    launches)."""
+    import gc
+
+    from podtpu_torch.train.state import create_train_state, total_notfinite
+    from podtpu_torch.train.steps import make_train_step
+
+    b, size = int(cfg["batch_size"]), int(cfg["input_size"])
+    r = np.random.default_rng(SEED + 7)
+    img = torch.from_numpy(r.random((b, size, size, 3), np.float32)).to(dev)
+    annot = torch.from_numpy(synthetic_annotations(cfg, b, SEED)).to(dev)
+    batch = {"img": img, "annot": annot}
+    record, launches, ref = {}, None, {}
+
+    def stats_of(state):
+        return {k: v.clone() for k, v in state.model.state_dict().items()
+                if "running" in k}
+
+    for name, extra in OPTION_TRAINING:
+        ocfg = _option_cfg(cfg, extra)
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = create_train_state(ocfg, dev, weights=flat)
+        step = make_train_step(ocfg)
+        first = {}
+        apply = state.apply_gradients
+
+        def spy(finite=True, state=state, first=first, apply=apply):
+            if "grads" not in first:
+                first["grads"] = torch.cat([
+                    p.grad.detach().float().reshape(-1)
+                    for p in state.params()])
+            return apply(finite)
+
+        state.apply_gradients = spy
+        shadow0 = ({k: v.double().cpu() for k, v in state.ema.items()}
+                   if state.ema is not None else None)
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        first["stats"] = stats_of(state)
+        rec = record[name] = {"loss": float(m["loss"])}
+        if shadow0 is not None:
+            o = state.ema_opts
+            d = o["decay"] * (1.0 - np.exp(-state.step / o["tau"]))
+            sd = state.model.state_dict()
+            # |got - want| beyond rtol 1e-5 (tests/test_ema.py's atol 1e-6)
+            rec["ema_excess_err"] = max(float(
+                ((state.ema[k].double().cpu() - want).abs()
+                 - 1e-5 * want.abs()).max())
+                for k, e in shadow0.items()
+                for want in [e * d + sd[k].double().cpu() * (1.0 - d)])
+        state.apply_gradients = apply
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _zero_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        rec["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / steps
+        counts = _counts()
+        launches = counts if launches is None else _add_counts(launches,
+                                                               counts)
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # what a step adds over the tensors held between steps
+        rec["step_peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+        rec["stem_launches"] = {k: counts[f"stem_{k}"] for k in STEM_REPLACES}
+        rec["loss_last"] = float(m["loss"])
+        per_step = 0 if name == "qat" else steps
+        rec["ok"] = (np.isfinite([rec["loss"], rec["loss_last"]]).all()
+                     and all(v == per_step
+                             for v in rec["stem_launches"].values())
+                     and counts["greedy_suppress"] == 0)
+        if name == "plain":
+            ref = first
+        elif name.startswith("remat"):
+            g0, g1 = ref["grads"], first["grads"]
+            rec["grad_rel_err"] = float((g1 - g0).norm() / g0.norm())
+            rec["running_stats_bit_equal"] = all(
+                torch.equal(v, ref["stats"][k])
+                for k, v in first["stats"].items())
+            rec["ok"] &= (rec["grad_rel_err"] <= 1e-2
+                          and rec["running_stats_bit_equal"]
+                          and (name == "remat_no_post_act"
+                               or rec["step_peak_gb"]
+                               < record["plain"]["step_peak_gb"]))
+        if name == "accum_steps_2":
+            rec["ok"] &= (state.step, state.count) == (1 + steps,
+                                                       (1 + steps) // 2)
+        if name == "ema":
+            rec["ok"] &= rec["ema_excess_err"] <= 1e-6
+        if name in ("plain", "sgd_flat"):
+            rec["syncs_per_step"] = _sync_count(lambda: step(state, batch))
+        del state, step, first
+    ref.clear()
+
+    # skip_nonfinite: a NaN pixel, then three bad steps in a row
+    ocfg = _option_cfg(cfg, {"optimizer_options": {"skip_nonfinite": 2}})
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = create_train_state(ocfg, dev, weights=flat)
+    step = make_train_step(ocfg)
+    state, _ = step(state, batch)
+    bad = dict(batch, img=img.clone())
+    bad["img"][0, 7, 7, 0] = float("nan")
+    sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+    mom = [t.clone() for s in state.optimizer.state.values()
+           for t in s.values() if isinstance(t, torch.Tensor)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    state, m = step(state, bad)
+    torch.cuda.synchronize()
+    unchanged = (all(torch.equal(v, state.model.state_dict()[k])
+                     for k, v in sd.items())
+                 and all(torch.equal(a, t) for a, t in zip(mom, [
+                     t for s in state.optimizer.state.values()
+                     for t in s.values() if isinstance(t, torch.Tensor)])))
+    rec = record["skip_nonfinite_2"] = {
+        "rejected_loss": float(m["loss"]),
+        "state_unchanged_bit_for_bit": unchanged,
+        "total_notfinite_after_one": total_notfinite(state),
+        "counts_after_one": [state.step, state.count]}
+    for _ in range(2):
+        state, m = step(state, bad)
+    params = torch.cat([p.detach().reshape(-1)
+                        for p in state.model.parameters()])
+    rec["third_bad_applied"] = bool(torch.isnan(params).any())
+    rec["bn_stats_kept_finite"] = all(
+        torch.isfinite(v).all() for k, v in state.model.state_dict().items()
+        if "running" in k)
+    rec["counts_after_three"] = [state.step, state.count,
+                                 total_notfinite(state)]
+    launches = _add_counts(launches, _counts())
+    # the guard's cost: finite steps with and without it
+    state = create_train_state(ocfg, dev, weights=flat)
+    plain = create_train_state(cfg, dev, weights=flat)
+    plain_step = make_train_step(cfg)
+    for s, fn in ((state, step), (plain, plain_step)):
+        fn(s, batch)
+    torch.cuda.synchronize()
+    ms = {"guard": [], "plain": []}
+    for _ in range(6):
+        for key, s, fn in (("guard", state, step),
+                           ("plain", plain, plain_step)):
+            t0 = time.perf_counter()
+            fn(s, batch)
+            torch.cuda.synchronize()
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+    rec["guard_ms_per_step"] = float(np.median(ms["guard"]))
+    rec["plain_ms_per_step"] = float(np.median(ms["plain"]))
+    rec["guard_syncs_per_step"] = _sync_count(lambda: step(state, batch))
+    rec["plain_syncs_per_step"] = _sync_count(
+        lambda: plain_step(plain, batch))
+    rec["ok"] = (unchanged and rec["total_notfinite_after_one"] == 1
+                 and rec["counts_after_one"] == [2, 1]
+                 and rec["third_bad_applied"] and rec["bn_stats_kept_finite"]
+                 and rec["counts_after_three"] == [4, 2, 3]
+                 and rec["guard_syncs_per_step"]
+                 == rec["plain_syncs_per_step"] + 1)
+    del state, plain, step, plain_step
+    return record, launches
+
+
+def options_fit(fit, dev, tmp):
+    """Phase 18's fit: phase 9's run for one epoch with ``ema: true`` and
+    ``accum_steps: 2`` through ``train.run.train``, then ``cli.test
+    --use-ema`` on its ``best``: the fit's own val numbers."""
+    import shutil
+
+    from podtpu_torch.cli import test as test_cli
+    from podtpu_torch.train.run import train
+
+    cfg = _option_cfg(fit["cfg"], {"optimizer_options": {"accum_steps": 2}})
+    cfg.update(ema=True, epochs=1, save_freq=100,
+               save_dir=os.path.join(tmp, "options_runs"))
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    trainer = train(cfg, device="cuda")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = _counts()
+    row = trainer.history[-1]
+    best = os.path.join(trainer.run_dir, "checkpoints", "best")
+    _zero_counts()
+    got = test_cli.main(["--cfg", _write_yaml(cfg, tmp), "--ckpt", best,
+                         "--device", "cuda", "--use-ema"])
+    torch.cuda.synchronize()
+    test_launches = _counts()
+    rec = {"seconds": fit_s, "row": row, "test_use_ema": got,
+           "steps_counts": [trainer.state.step, trainer.state.count],
+           "launches_fit": fit_launches, "launches_test": test_launches}
+    rec["ok"] = (abs(got["val_loss"] - row["val_loss"])
+                 <= 1e-5 * abs(row["val_loss"])
+                 and rec["steps_counts"] == [2, 1]
+                 and all(fit_launches[f"stem_{k}"] == 2
+                         for k in STEM_REPLACES)
+                 and fit_launches["greedy_suppress"] == 2
+                 and test_launches["greedy_suppress"] == 2)
+    shutil.rmtree(cfg["save_dir"], ignore_errors=True)
+    return rec, _add_counts(fit_launches, test_launches)
+
+
+def _write_yaml(cfg, tmp):
+    import yaml
+
+    path = os.path.join(tmp, "options.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def options_phase(cfg, flat, dev, card, fit, images, tmp):
+    """Phase 18: the serving and train-step options on YOLOv3-416 bf16
+    with phase 3's weights. Returns the kernels' launches of the phase."""
+    t0 = time.perf_counter()
+    serving, serve_launches = options_serving(cfg, flat, dev, images)
+    training, train_launches = options_training(cfg, flat, dev)
+    fitted, fit_launches = options_fit(fit, dev, tmp)
+    launches = _add_counts(_add_counts(serve_launches, train_launches),
+                           fit_launches)
+    seconds = time.perf_counter() - t0
+    emit({"phase": "options", "config": "configs/yolov3_voc.yaml",
+          "serving": serving, "training": training, "fit": fitted,
+          "launches": launches, "merge_tolerance": MERGE_TOL,
+          "seconds": seconds, "card": card})
+    failed = [f"serving {n} {b}" for n, v in serving.items()
+              for b, r in v.items() if not r["ok"]]
+    failed += [f"training {n}" for n, r in training.items() if not r["ok"]]
+    failed += ["fit"] if not fitted["ok"] else []
+    if failed:
+        raise AssertionError(f"the options phase failed its checks: {failed}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3192,6 +3574,9 @@ def main() -> int:
         ways_launches = fit_ways_phase(fit, dev, card, tmp)
         # 17. the step profile of each family and of the run from files
         profile_phase(fit, dev, card)
+        # 18. the serving and train-step options on YOLOv3-416
+        options_launches = options_phase(cfg, flat, dev, card, fit, images,
+                                         tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for e in stem_entries:
@@ -3205,6 +3590,7 @@ def main() -> int:
         e["launches_retinanet"] = retina_launches[e["name"]]
         e["launches_yolov4_synth"] = synth_launches[e["name"]]
         e["launches_fit_ways"] = ways_launches[e["name"]]
+        e["launches_options"] = options_launches[e["name"]]
         t448 = stem448["timing"][e["name"][len("stem_"):]]
         e.update(ms_448=t448["ms"], plain_ms_448=t448["plain_ms"],
                  bound_ms_448=t448["bound_ms"],
@@ -3241,6 +3627,7 @@ def main() -> int:
         "launches_retinanet": retina_launches["greedy_suppress"],
         "launches_yolov4_synth": synth_launches["greedy_suppress"],
         "launches_fit_ways": ways_launches["greedy_suppress"],
+        "launches_options": options_launches["greedy_suppress"],
         **{f"{k}_retina": retina_suppress[k]
            for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
         "plain_ms": plain_ms,

@@ -3,9 +3,8 @@ under the same name (``test.py`` -> ``python -m podtpu_torch.cli.test``).
 
 Each runs on ``cuda`` unless ``--device`` says otherwise (``--device cpu``
 in place of ``podtpu``'s ``--platform cpu``). Exported serving artifacts
-(``--artifact``), int8 evaluation (``--quantize``) and EMA weights
-(``--use-ema``) are not ported: asking for them raises, naming the
-``ROADMAP.md`` item that ports them.
+(``--artifact``) and int8 evaluation (``--quantize``) are not ported:
+asking for them raises, naming the ``ROADMAP.md`` item that ports them.
 """
 
 from __future__ import annotations
@@ -25,14 +24,17 @@ def class_names(cfg: dict) -> list[str]:
     return [str(i) for i in range(cfg["num_classes"])]
 
 
-def eval_trainer(cfg: dict, ckpt: str | None, device=None):
+def eval_trainer(cfg: dict, ckpt: str | None, device=None,
+                 use_ema: bool | None = None):
     """An eval-only ``Trainer`` on ``device`` holding ``ckpt``'s weights
-    (the model's own initialisation without one)."""
+    (the model's own initialisation without one): the EMA shadow or the
+    raw weights as ``restore_eval_weights`` picks them."""
     from podtpu_torch.train.trainer import Trainer, restore_eval_weights
 
     trainer = Trainer(cfg, eval_only=True, device=device)
     if ckpt:
-        trainer.state = restore_eval_weights(ckpt, trainer.state, cfg)
+        trainer.state = restore_eval_weights(ckpt, trainer.state, cfg,
+                                             use_ema=use_ema)
     return trainer
 
 

@@ -25,14 +25,13 @@ def evaluate(cfg: dict, ckpt: str | None, report_dir: str | None = None,
              use_ema: bool | None = None) -> dict:
     """``{"val_loss", "val_mAP"}`` of ``ckpt`` over cfg ``val_list`` at
     cfg ``batch_size``; ``report_dir``: also the per-class table, PR curves
-    and confusion matrix (``metrics/plots.py::write_eval_report``)."""
+    and confusion matrix (``metrics/plots.py::write_eval_report``).
+    ``use_ema``: the checkpoint's EMA shadow (True), its raw weights
+    (False), or None: the shadow where cfg ``ema.eval`` chose ``best`` on
+    it (``train/trainer.py::restore_eval_weights``)."""
     if quantize:
         raise NotImplementedError("--quantize (int8 PTQ eval) is not ported "
                                   "yet (ROADMAP.md queue 1, item 10: export)")
-    if use_ema:
-        raise NotImplementedError("--use-ema (EMA weights) is not ported yet "
-                                  "(ROADMAP.md queue 1, item 6: train-step "
-                                  "options)")
     _, val_ds = build_datasets(cfg)
     val_loader = Loader(
         val_ds,
@@ -41,7 +40,7 @@ def evaluate(cfg: dict, ckpt: str | None, report_dir: str | None = None,
         max_annots=cfg["max_annots"],
         workers=cfg["workers"],
     )
-    trainer = eval_trainer(cfg, ckpt, device)
+    trainer = eval_trainer(cfg, ckpt, device, use_ema=use_ema)
     result = trainer.validate(val_loader)
     print(f"val_loss: {result['val_loss']:.5f}")
     print(f"val_mAP: {result['val_mAP']:.5f}")
@@ -67,8 +66,9 @@ def main(argv=None):
                          "raises)")
     ap.add_argument("--use-ema", action=argparse.BooleanOptionalAction,
                     default=None,
-                    help="evaluate the checkpoint's EMA shadow weights (not "
-                         "ported yet: raises)")
+                    help="evaluate the checkpoint's EMA shadow weights "
+                         "(default: auto — EMA when the config's ema.eval "
+                         "is on, matching how `best` was selected)")
     args = ap.parse_args(argv)
     if args.artifact:
         raise NotImplementedError(ARTIFACT_UNPORTED)

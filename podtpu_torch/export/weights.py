@@ -160,9 +160,14 @@ def load_flat_weights(model: torch.nn.Module, flat: dict[str, np.ndarray],
     return model
 
 
-def load_npz_weights(model: torch.nn.Module, path: str,
-                     allow_partial: bool = False) -> torch.nn.Module:
-    """Load a ``podtpu`` ``save_npz_weights`` file into ``model``."""
+def load_npz_weights(target, path: str, allow_partial: bool = False):
+    """Load a ``podtpu`` ``save_npz_weights`` file into ``target``: a
+    model, or a train state, whose EMA shadow (where it has one) is then
+    reseeded from the loaded weights. Returns ``target``."""
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
-    return load_flat_weights(model, flat, allow_partial, source=path)
+    load_flat_weights(getattr(target, "model", target), flat, allow_partial,
+                      source=path)
+    if getattr(target, "ema", None) is not None:
+        target.init_ema()
+    return target

@@ -3,17 +3,30 @@
 Six stages (stem + layer1..5) built from ``(out_ch, k)`` / ``"M"`` config
 lists; ``Darknet19`` returns the features at ``out_indices``. In train mode
 stage0 and layer1's leading pool run as the fused stem
-(``models/stem.py``) when :func:`stem_fusable` holds.
+(``models/stem.py``) when :func:`stem_fusable` holds and the stem block is
+not under QAT (the fused op has no fake-quant).
+
+``remat`` (cfg ``remat_backbone``, YOLOv3 only as in ``podtpu``): each
+stage's forward is recomputed in the backward in place of keeping its
+activations (``torch.utils.checkpoint``); the recompute leaves the BN
+running statistics alone (``layers.recompute_context``), so they move
+once a step. The fused stem stays outside the recomputed stages.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from podtpu_torch.models.layers import ConvBnAct, max_pool_2x2
+from podtpu_torch.models.layers import (
+    ConvBnAct,
+    max_pool_2x2,
+    recompute_context,
+)
 from podtpu_torch.models.stem import fused_stem_pool, stem_fusable
 
 # (out_channels, kernel) conv entries; "M" = 2x2/2 max pool.
@@ -61,21 +74,35 @@ class Darknet19(nn.Module):
     """Feature extractor (NCHW); returns the stage outputs at ``out_indices``."""
 
     def __init__(self, out_indices: Sequence[int] = (5,), in_channels: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.out_indices = tuple(out_indices)
+        self.remat = remat
         in_ch = in_channels
         for i, cfg in enumerate(STAGE_CFGS):
             self.add_module(f"stage{i}", _Stage(cfg, in_ch, dtype=dtype))
             in_ch = STAGE_CHANNELS[i]
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        fuse = stem_fusable(x, self.training, self.out_indices)
+        fuse = (stem_fusable(x, self.training, self.out_indices)
+                and not self.stage0.conv0.qat)
         if fuse:
             x = fused_stem_pool(self.stage0.conv0, x)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         feats = []
         for i in range(1 if fuse else 0, len(STAGE_CFGS)):
-            x = getattr(self, f"stage{i}")(x, skip_pool=fuse and i == 1)
+            stage, skip = getattr(self, f"stage{i}"), fuse and i == 1
+            if remat:
+                x = checkpoint(stage, x, skip, use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=_recompute_contexts)
+            else:
+                x = stage(x, skip_pool=skip)
             if i in self.out_indices:
                 feats.append(x)
         return feats
+
+
+def _recompute_contexts():
+    """``checkpoint``'s (forward, recompute) contexts."""
+    return nullcontext(), recompute_context()

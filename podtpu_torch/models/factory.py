@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from podtpu_torch import resolve_device
+from podtpu_torch.models.layers import ConvBnAct
 from podtpu_torch.models.retinanet import RetinaNet
 from podtpu_torch.models.yolov1 import YoloV1
 from podtpu_torch.models.yolov2 import YoloV2
@@ -30,12 +31,14 @@ def build_model(cfg: dict, device: str | torch.device | None = None,
     Weights are PyTorch's default init (RetinaNet's class prior bias
     aside); load trained ones with
     :func:`podtpu_torch.export.weights.load_npz_weights`.
+
+    ``qat: true`` turns on every ``ConvBnAct``'s fake-quantized train-mode
+    forward (``podtpu`` threads the flag into each family's blocks: all of
+    them, the fused stem then off); ``remat_backbone: true`` recomputes
+    YOLOv3's backbone stages in the backward (YOLOv3 only, as in
+    ``podtpu``).
     """
     name = cfg["model"]
-    if cfg.get("qat"):
-        raise NotImplementedError("qat (fake-quant training) is not ported "
-                                  "yet (ROADMAP.md queue 1, train-step "
-                                  "options)")
     kw = dict(num_classes=cfg["num_classes"],
               in_channels=cfg.get("in_channels", 3), dtype=compute_dtype(cfg))
     if name == "yolov1":
@@ -44,7 +47,8 @@ def build_model(cfg: dict, device: str | torch.device | None = None,
     elif name == "yolov2":
         model = YoloV2(num_anchors=len(cfg["scaled_anchors"]), **kw)
     elif name == "yolov3":
-        model = YoloV3(num_anchors=len(cfg["anchors"]), **kw)
+        model = YoloV3(num_anchors=len(cfg["anchors"]),
+                       remat=bool(cfg.get("remat_backbone", False)), **kw)
     elif name == "yolov4-tiny":
         model = YoloV4Tiny(num_anchors=len(cfg["anchors"]), **kw)
     elif name == "yolov4":
@@ -53,4 +57,8 @@ def build_model(cfg: dict, device: str | torch.device | None = None,
         model = RetinaNet(**kw)
     else:
         raise ValueError(f"unknown model '{name}'")
+    if cfg.get("qat"):
+        for m in model.modules():
+            if isinstance(m, ConvBnAct):
+                m.qat = True
     return model.to(resolve_device(device)).train(train)

@@ -10,15 +10,147 @@ NCHW, which is a ``channels_last`` view, so cuDNN keeps that layout). As in
 * the BN epilogue is one compute-dtype multiply-add whose ``mul``/``add``
   are folded in float32 from the statistics: the running ones in eval
   mode, the batch's in train mode (``module.train()``).
+
+Two train-step options live here. QAT (cfg ``qat``, ``ConvBnAct.qat``):
+the train-mode forward fake-quantizes each block's input and kernel
+(:func:`fake_quant`). Rematerialization (cfg ``remat_policy``, the
+:func:`remat_scope` of the train step): the backward recomputes a block's
+BN-apply and activation from its saved conv output and [C] statistics in
+place of keeping them; a recompute never moves the running statistics
+(:func:`recompute_context`, for ``remat_backbone``'s recomputed stages).
 """
 
 from __future__ import annotations
 
+import threading
+import weakref
+from contextlib import contextmanager
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+REMAT_POLICIES = ("conv_out", "no_post_act")
+
+# per thread: the remat registry of the forward in progress, and whether a
+# checkpointed stage is being recomputed
+_local = threading.local()
+
+
+def _key(t: torch.Tensor) -> tuple:
+    return (t.untyped_storage().data_ptr(), t.storage_offset(),
+            tuple(t.shape), tuple(t.stride()), t.dtype)
+
+
+class _Recipe:
+    """How the backward recomputes a tensor the forward did not keep; the
+    value is made once and shared by every node that saved it."""
+
+    def __init__(self, fn):
+        self.fn, self.value = fn, None
+
+    def __call__(self) -> torch.Tensor:
+        if self.value is None:
+            with torch.no_grad():
+                self.value = self.fn()
+        return self.value
+
+
+class _Registry:
+    """Tensors of one forward that the backward recomputes: key -> (a weak
+    reference to the tensor, its recipe)."""
+
+    def __init__(self, policy: str):
+        self.policy = policy
+        self.entries: dict = {}
+        self.affine = None  # the last BN's replay of its output
+        # while a block's activation runs: (the key of its input, the
+        # recipe of its output), for the output it saves as it makes it
+        self.pending = None
+
+    def add(self, t: torch.Tensor, fn):
+        recipe = fn if isinstance(fn, _Recipe) else _Recipe(fn)
+        self.entries[_key(t)] = (weakref.ref(t), recipe)
+
+    def pack(self, t: torch.Tensor):
+        key = _key(t)
+        hit = self.entries.get(key)
+        # a dead reference: the storage may since hold another tensor
+        if hit is not None and hit[0]() is not None:
+            return hit[1]
+        if self.pending is not None and key != self.pending[0]:
+            return self.pending[1]
+        return t
+
+
+def _unpack(saved):
+    return saved() if isinstance(saved, _Recipe) else saved
+
+
+@contextmanager
+def remat_scope(policy: str | None):
+    """Within it, train-mode ``ConvBnAct`` forwards keep for the backward
+    only what ``policy`` saves (``podtpu``'s ``remat_policy``):
+
+    * ``conv_out``: the conv output and the [C] batch statistics; the
+      float32 copy the statistics are taken from, the BN output and the
+      activation are recomputed from them;
+    * ``no_post_act``: everything but the activation's output (the
+      block's output), which is recomputed.
+
+    The forward runs once, so the running statistics move once; the
+    recompute repeats the same operations and gives the same bits.
+    ``None`` saves everything (stock autograd)."""
+    if policy is None:
+        yield
+        return
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy '{policy}' "
+                         "(expected conv_out | no_post_act)")
+    registry = _Registry(policy)
+    prev = getattr(_local, "remat", None)
+    _local.remat = registry
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(registry.pack,
+                                                      _unpack):
+            yield
+    finally:
+        _local.remat = prev
+        # every saved tensor keeps the hooks, and so the registry, until
+        # its node runs: drop the registry's own references, so that a
+        # recomputed tensor lives only until the nodes that read it ran
+        registry.entries.clear()
+        registry.affine = registry.pending = None
+
+
+@contextmanager
+def recompute_context():
+    """The context of a checkpointed stage's recompute: BN layers use the
+    batch statistics as before and leave the running ones alone."""
+    prev = getattr(_local, "recomputing", False)
+    _local.recomputing = True
+    try:
+        yield
+    finally:
+        _local.recomputing = prev
+
+
+def fake_quant(x: torch.Tensor, dims: tuple[int, ...] | None = None
+               ) -> torch.Tensor:
+    """Symmetric int8 fake quantization with a straight-through estimator
+    (``podtpu``'s ``_fake_quant``): the scale is the abs-max over the whole
+    tensor (``dims=None``, activations) or over ``dims`` (per output
+    channel of an OIHW kernel: ``(1, 2, 3)``) / 127, detached; the math
+    runs in float32 and returns ``x + detach(q(x) - x)`` in x's dtype."""
+    x32 = x.float()
+    a = x32.abs()
+    absmax = a.amax() if dims is None else a.amax(dim=dims, keepdim=True)
+    # a 0-dim divisor: true division on the card as on the CPU
+    scale = (torch.where(absmax > 0, absmax, 1.0)
+             / absmax.new_full((), 127.0)).detach()
+    q = torch.clamp(torch.round(x32 / scale), -127, 127) * scale
+    return (x32 + (q - x32).detach()).to(x.dtype)
 
 
 class BatchNormMixed(nn.Module):
@@ -56,6 +188,8 @@ class BatchNormMixed(nn.Module):
         """Fold one batch's statistics (over ``n`` values per channel) into
         the running ones, or hand them to ``stats_sink`` when one is set
         (the buffers are then left alone)."""
+        if getattr(_local, "recomputing", False):
+            return
         bessel = n / max(n - 1, 1)
         if self.stats_sink is not None:
             self.stats_sink(mean, bessel * var)
@@ -66,8 +200,12 @@ class BatchNormMixed(nn.Module):
                                + (1.0 - m) * bessel * var)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        remat = getattr(_local, "remat", None) if self.training else None
         if self.training:
             x32 = x.float()
+            if remat is not None and remat.policy == "conv_out" \
+                    and x32 is not x:
+                remat.add(x32, x.float)
             mean = x32.mean(dim=(0, 2, 3))
             var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean
                    ).clamp_min(0.0)
@@ -78,7 +216,14 @@ class BatchNormMixed(nn.Module):
         # y = (x - mean) * inv + bias, folded into one multiply-add
         mul = inv.to(self.dtype)[:, None, None]
         add = (self.bias - mean * inv).to(self.dtype)[:, None, None]
-        return x.to(self.dtype) * mul + add
+        z = x.to(self.dtype) * mul + add
+        if remat is not None:
+            # what the enclosing block's recipes replay: c * mul + add
+            c, m, a = x, mul.detach(), add.detach()
+            remat.affine = lambda: c.to(self.dtype) * m + a
+            if remat.policy == "conv_out":
+                remat.add(z, remat.affine)
+        return z
 
 
 class ConvBnAct(nn.Module):
@@ -88,7 +233,11 @@ class ConvBnAct(nn.Module):
     ``podtpu`` pads symmetrically, so a stride-2 conv is torch's
     ``padding=p, stride=2`` and not a ``'same'`` one. As in ``podtpu``, the
     activation takes the BN output in the compute dtype and its result is
-    cast to it."""
+    cast to it.
+
+    ``qat`` (cfg ``qat``, set by the factory): the train-mode forward
+    fake-quantizes the input per tensor and the kernel per output channel
+    (:func:`fake_quant`) before the conv; eval mode is untouched."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
                  dtype: torch.dtype = torch.float32, strides: int = 1,
@@ -96,17 +245,37 @@ class ConvBnAct(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.act = act
+        self.qat = False
         self.conv = nn.Conv2d(in_ch, features, kernel_size, stride=strides,
                               padding=(kernel_size - 1) // 2, bias=False)
         self.bn = BatchNormMixed(features, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.conv2d(x.to(self.dtype), self.conv.weight.to(self.dtype),
-                     stride=self.conv.stride, padding=self.conv.padding)
-        x = self.bn(x)
+    def _post(self, z: torch.Tensor) -> torch.Tensor:
         if self.act is not None:
-            x = self.act(x)
-        return x.to(self.dtype)
+            z = self.act(z)
+        return z.to(self.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.conv.weight
+        if self.qat and self.training:
+            x, w = fake_quant(x), fake_quant(w, dims=(1, 2, 3))
+        x = F.conv2d(x.to(self.dtype), w.to(self.dtype),
+                     stride=self.conv.stride, padding=self.conv.padding)
+        z = self.bn(x)
+        remat = getattr(_local, "remat", None) if self.training else None
+        if remat is None:
+            return self._post(z)
+        # the activation saves its output (ReLU) as it makes it, before
+        # the output can be registered: the registry knows it as pending
+        affine = remat.affine
+        recipe = _Recipe(lambda: self._post(affine()))
+        remat.pending = (_key(z), recipe)
+        try:
+            y = self._post(z)
+        finally:
+            remat.pending = None
+        remat.add(y, recipe)
+        return y
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:

@@ -20,8 +20,8 @@ from podtpu_torch.ops.kernels.stem_kernel import stem_fused
 def stem_fusable(x: torch.Tensor, training: bool, out_indices) -> bool:
     """The fused op covers exactly conv3x3(3 -> C) + 2x2/2 pool in train
     mode, with H a multiple of 8 and W even, and no consumer of the
-    pre-pool stage0 feature. x is NCHW. (``podtpu`` also excludes QAT, which
-    the port does not build.)"""
+    pre-pool stage0 feature. x is NCHW. (QAT, which has no fused form, is
+    excluded by the caller, ``models/darknet.py``, as in ``podtpu``.)"""
     return (
         training
         and 0 not in out_indices
@@ -45,4 +45,10 @@ def fused_stem_pool(block: ConvBnAct, x: torch.Tensor) -> torch.Tensor:
     pooled, mean, var = stem_fused(xh, w, bn.weight, bn.bias, bn.eps,
                                    block.dtype)
     bn.update_running_stats(mean, var, xh.numel() // xh.shape[-1])
+    # The kernels take the ReLU as a max with 0, which maps a NaN to 0;
+    # the plain version and podtpu carry it on. A NaN or inf input makes
+    # the batch statistics non-finite, and this add makes the output NaN
+    # then too (a rejected step under skip_nonfinite); a finite output is
+    # left bit for bit.
+    pooled = pooled + (mean.sum() + var.sum()).detach() * 0.0
     return pooled.permute(0, 3, 1, 2)

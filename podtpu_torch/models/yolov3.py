@@ -3,7 +3,8 @@
 Darknet-19 taps c3/c4/c5; top-down FPN with conv-route + 2x nearest
 upsample; three heads each predicting 3*(5+C) channels. Takes an NHWC
 float batch and returns (p3, p4, p5) NHWC float32 raw logits at strides
-8/16/32, as ``podtpu`` does.
+8/16/32, as ``podtpu`` does. ``remat``: cfg ``remat_backbone``, the
+backbone's stages recomputed in the backward (``models/darknet.py``).
 """
 
 from __future__ import annotations
@@ -42,14 +43,16 @@ class _Head(nn.Module):
 
 class YoloV3(nn.Module):
     def __init__(self, num_classes: int, num_anchors: int = 9,
-                 in_channels: int = 3, dtype: torch.dtype = torch.float32):
+                 in_channels: int = 3, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         if num_anchors != 9:
             raise ValueError(f"YOLOv3 takes 9 anchors (3 per scale), "
                              f"got {num_anchors}")
         out_ch = num_anchors // 3 * (num_classes + 5)
         self.backbone = Darknet19(out_indices=(3, 4, 5),
-                                  in_channels=in_channels, dtype=dtype)
+                                  in_channels=in_channels, dtype=dtype,
+                                  remat=remat)
         self.c5_conv = _ConvTriple(1024, 512, dtype)
         self.p5_head = _Head(512, 1024, out_ch, dtype)
         self.c5_route = ConvBnAct(512, 256, 3, dtype=dtype)

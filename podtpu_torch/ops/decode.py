@@ -4,7 +4,9 @@ Anchor heads are NHWC ([B, H, W, A*(5+C)]); the flattened candidate order
 is [H, W, A], as in ``podtpu``. Outputs are [B, N, 6] rows of
 ``[cx, cy, w, h, conf, class_idx]`` in input-pixel scale, single-label
 class via argmax; every argmax keeps the first of equal maxima, as
-``jnp.argmax`` does.
+``jnp.argmax`` does. The anchor-head decoders also take
+``multi_label=True``: one row per (anchor, class), [B, H*W*A*C, 6] in
+(h, w, a, c) order with c fastest, ``conf = sigmoid(obj) * sigmoid(cls_c)``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ def _grid_xy(layer_h: int, layer_w: int, device=None) -> torch.Tensor:
 
 def decode_anchor_head(pred: torch.Tensor, num_classes: int,
                        anchors_grid: torch.Tensor,
-                       input_size: int) -> torch.Tensor:
+                       input_size: int,
+                       multi_label: bool = False) -> torch.Tensor:
     """Decode one anchor-grid head (one YOLOv3 scale).
 
     Args:
@@ -34,8 +37,11 @@ def decode_anchor_head(pred: torch.Tensor, num_classes: int,
       anchors_grid: [A, 2] float32 anchors in grid units of this layer, on
         ``pred``'s device.
       input_size: model input resolution (pixels).
+      multi_label: one candidate per (anchor, class) pair, all C rows
+        emitted (NMS's confidence mask drops the weak ones).
 
-    Returns [B, H*W*A, 6] rows ``[cx, cy, w, h, conf, cls]``.
+    Returns [B, H*W*A, 6] rows ``[cx, cy, w, h, conf, cls]``
+    ([B, H*W*A*C, 6] under ``multi_label``).
     """
     b, layer_h, layer_w, _ = pred.shape
     num_anchors = anchors_grid.shape[0]
@@ -51,6 +57,15 @@ def decode_anchor_head(pred: torch.Tensor, num_classes: int,
     pbox = torch.stack([pxy[..., 0] * stride_w, pxy[..., 1] * stride_h,
                         pwh[..., 0] * stride_w, pwh[..., 1] * stride_h],
                        dim=-1)
+    if multi_label:
+        c = num_classes
+        conf = torch.sigmoid(pred[..., 4:5]) * torch.sigmoid(pred[..., 5:])
+        shape = (b, layer_h, layer_w, num_anchors, c)
+        cls = torch.arange(c, dtype=torch.float32, device=pred.device)
+        out = torch.cat([pbox[..., None, :].expand(shape + (4,)),
+                         conf[..., None], cls.expand(shape)[..., None]],
+                        dim=-1)
+        return out.reshape(b, layer_h * layer_w * num_anchors * c, 6)
     pconf = torch.sigmoid(pred[..., 4:5])
     # argmax(sigmoid(x)) == argmax(x); torch.argmax takes the first max
     pcls = torch.argmax(pred[..., 5:], dim=-1, keepdim=True).float()
@@ -75,7 +90,8 @@ def layer_anchors(anchors, preds_hw, input_size: int,
 
 
 def decode_yolov3(preds, num_classes: int, anchors, input_size: int,
-                  anchors_grid: list[torch.Tensor] | None = None):
+                  anchors_grid: list[torch.Tensor] | None = None,
+                  multi_label: bool = False):
     """YOLOv3: decode [p3, p4, p5]; global ``anchors`` are in input pixels,
     split 3 per layer and rescaled to each layer's grid units.
     ``anchors_grid`` (from :func:`layer_anchors`) skips that rescale."""
@@ -83,17 +99,20 @@ def decode_yolov3(preds, num_classes: int, anchors, input_size: int,
         anchors_grid = layer_anchors(
             anchors, [p.shape[1:3] for p in preds], input_size,
             device=preds[0].device)
-    outs = [decode_anchor_head(pred, num_classes, a, input_size)
+    outs = [decode_anchor_head(pred, num_classes, a, input_size,
+                               multi_label=multi_label)
             for pred, a in zip(preds, anchors_grid)]
     return torch.cat(outs, dim=1)
 
 
 def decode_yolov2(pred: torch.Tensor, num_classes: int,
-                  anchors_grid: torch.Tensor, input_size: int) -> torch.Tensor:
+                  anchors_grid: torch.Tensor, input_size: int,
+                  multi_label: bool = False) -> torch.Tensor:
     """YOLOv2: the single 13x13 head; ``anchors_grid`` [A, 2] float32 are
     the config's ``scaled_anchors`` (already grid units) on ``pred``'s
     device."""
-    return decode_anchor_head(pred, num_classes, anchors_grid, input_size)
+    return decode_anchor_head(pred, num_classes, anchors_grid, input_size,
+                              multi_label=multi_label)
 
 
 def decode_yolov1(pred: torch.Tensor, num_classes: int, num_boxes: int,

@@ -3,13 +3,19 @@
 * ``make_train_step``: train-mode forward (the fused stem's kernels on the
   card), target encoding and loss, backward and the optimizer update, all
   on the batch's device; ``make_multi_train_step``: K of them over a
-  stacked group of batches with no host synchronisation between them
-  (cfg ``steps_per_dispatch``). With cfg ``device_geom`` / ``device_augment``
-  the step first warps and jitters the batch on its device
-  (``data/device_aug.py``).
+  stacked group of batches (cfg ``steps_per_dispatch``). With cfg
+  ``device_geom`` / ``device_augment`` the step first warps and jitters
+  the batch on its device (``data/device_aug.py``). The step honours
+  ``podtpu``'s options: ``remat_policy`` (``models/layers.py``),
+  ``optimizer_options.skip_nonfinite`` (the update and the BN statistics
+  of a non-finite step dropped), ``accum_steps`` (``train/state.py``) and
+  ``ema`` (the shadow blended after each update).
 * ``make_serve_fn``: image batch -> detections. The whole postprocess stays
   on the batch's device: decode + padded NMS (whose suppression is the
   CUDA kernel on the card); only the [B, max_det, 6] survivors leave it.
+  cfg ``nms_options`` (``multi_label``, ``merge``, ``agnostic``,
+  ``classes``, ``backend``) and ``tta`` (flipped and down-scaled forwards,
+  their candidates joined before the one NMS) as in ``podtpu``.
 * ``make_eval_step``: eval-mode forward + loss + the serving postprocess;
   the host mAP (``metrics/map.py``) takes the survivors after ``.cpu()``.
 * ``make_stats_step``: a train-mode forward without a backward that returns
@@ -23,11 +29,17 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 
 from podtpu_torch.data.device_aug import make_device_augment, separable_affine
 from podtpu_torch.losses import build_loss
-from podtpu_torch.models.layers import BatchNormMixed, SeededDropout
+from podtpu_torch.models.layers import (
+    REMAT_POLICIES,
+    BatchNormMixed,
+    SeededDropout,
+    remat_scope,
+)
 from podtpu_torch.ops.decode import (
     decode_yolov1,
     decode_yolov2,
@@ -36,6 +48,7 @@ from podtpu_torch.ops.decode import (
 )
 from podtpu_torch.ops.nms import batched_class_aware_nms
 from podtpu_torch.ops.retina import decode_retinanet
+from podtpu_torch.train.optim import all_finite, skip_nonfinite
 
 
 def _as_input(img: torch.Tensor) -> torch.Tensor:
@@ -46,18 +59,25 @@ def _as_input(img: torch.Tensor) -> torch.Tensor:
     return img
 
 
-def make_decoder(cfg: dict) -> Callable:
+def make_decoder(cfg: dict, multi_label: bool = False) -> Callable:
     """Config -> fn(raw head output(s)) -> [B, N, 6] candidates: one tensor
     for yolov1 and yolov2, the tuple of three heads for yolov3, yolov4-tiny
     and yolov4 (all three through ``decode_yolov3``), the five (cls, box)
     levels for retinanet (its anchors cached per device by
-    ``ops/retina.py``)."""
+    ``ops/retina.py``). ``multi_label``: one candidate per (anchor, class)
+    (the anchor heads only)."""
     name = cfg["model"]
     num_classes = cfg["num_classes"]
     input_size = cfg["input_size"]
     if name == "retinanet":
+        if multi_label:
+            raise ValueError("multi_label is a YOLO-head option; the "
+                             "retinanet decoder is per-anchor single-label")
         return lambda preds: decode_retinanet(preds, num_classes, input_size)
     if name == "yolov1":
+        if multi_label:
+            raise ValueError("multi_label needs per-box class scores; the "
+                             "yolov1 head predicts one class set per cell")
         num_boxes = cfg["num_boxes"]
         return lambda pred: decode_yolov1(pred, num_classes, num_boxes,
                                           input_size)
@@ -70,7 +90,7 @@ def make_decoder(cfg: dict) -> Callable:
                 on_device[pred.device] = torch.tensor(
                     scaled, dtype=torch.float32, device=pred.device)
             return decode_yolov2(pred, num_classes, on_device[pred.device],
-                                 input_size)
+                                 input_size, multi_label=multi_label)
 
         return decode_v2
     if name not in ("yolov3", "yolov4-tiny", "yolov4"):
@@ -84,7 +104,7 @@ def make_decoder(cfg: dict) -> Callable:
             cache[key] = layer_anchors(anchors, key[1], input_size,
                                        device=key[0])
         return decode_yolov3(preds, num_classes, anchors, input_size,
-                             anchors_grid=cache[key])
+                             anchors_grid=cache[key], multi_label=multi_label)
 
     return decode
 
@@ -93,27 +113,23 @@ def _decoder_and_nms(cfg: dict) -> tuple[Callable, Callable]:
     """The two halves of the deployment postprocess: raw preds -> [B, N, 6]
     candidates, and candidates -> padded NMS survivors."""
     nopts = cfg.get("nms_options") or {}
-    if cfg["model"] == "yolov1" and nopts.get("multi_label"):
-        raise ValueError("multi_label needs per-box class scores; the "
-                         "yolov1 head predicts one class set per cell")
-    if cfg["model"] == "retinanet" and nopts.get("multi_label"):
-        raise ValueError("multi_label is a YOLO-head option; the "
-                         "retinanet decoder is per-anchor single-label")
-    unported = [k for k in ("multi_label", "merge", "agnostic", "classes",
-                            "backend") if nopts.get(k)]
-    if unported:
-        raise NotImplementedError(
-            f"nms_options {unported} are not ported yet (ROADMAP.md queue 1, "
-            "item 4: the rest of NMS); the port picks its suppression by device")
-    decoder = make_decoder(cfg)
+    decoder = make_decoder(cfg, multi_label=bool(nopts.get("multi_label")))
     conf_t = float(cfg.get("conf_threshold", 0.25))
     iou_t = float(cfg.get("nms_iou_threshold", 0.45))
     top_k = int(cfg.get("top_k_candidates", 512))
     max_det = int(cfg.get("max_detections", 100))
+    merge = bool(nopts.get("merge"))
+    agnostic = bool(nopts.get("agnostic"))
+    classes = nopts.get("classes")
+    classes = tuple(int(c) for c in classes) if classes else None
+    # podtpu's backend names are checked; the boxes' device picks the
+    # suppression (the CUDA kernel on the card)
+    backend = nopts.get("backend")
 
     def nms(boxes):
-        return batched_class_aware_nms(boxes, conf_t, iou_t, top_k=top_k,
-                                       max_detections=max_det)
+        return batched_class_aware_nms(
+            boxes, conf_t, iou_t, top_k=top_k, max_detections=max_det,
+            backend=backend, agnostic=agnostic, merge=merge, classes=classes)
 
     return decoder, nms
 
@@ -128,22 +144,89 @@ def make_postprocess(cfg: dict) -> Callable:
     return postprocess
 
 
+def tta_options(cfg: dict) -> dict | None:
+    """cfg ``tta`` -> ``{"hflip": bool, "scales": tuple}`` (None = off).
+    ``tta: true`` is the flipped forward alone; a mapping sets ``hflip``
+    (default on) and ``scales``, each in (0, 1] (1.0 is dropped: it is the
+    plain forward)."""
+    t = cfg.get("tta")
+    if not t:
+        return None
+    t = dict(t) if isinstance(t, dict) else {}
+    scales = tuple(float(s) for s in (t.get("scales") or ())
+                   if float(s) != 1.0)
+    if any(not 0.0 < s <= 1.0 for s in scales):
+        raise ValueError(f"tta.scales must be in (0, 1]: same-canvas "
+                         f"downscale branches (got {scales})")
+    return {"hflip": bool(t.get("hflip", True)), "scales": scales}
+
+
+def _scaled_canvas(x: torch.Tensor, hs: int, ws: int) -> torch.Tensor:
+    """The NHWC batch resized to (hs, ws) (bilinear, antialiased as
+    ``jax.image.resize`` shrinks) in the top-left of a same-size canvas
+    filled with 0.447."""
+    small = F.interpolate(x.permute(0, 3, 1, 2), size=(hs, ws),
+                          mode="bilinear", align_corners=False,
+                          antialias=True).permute(0, 2, 3, 1)
+    canvas = torch.full_like(x, 0.447)
+    canvas[:, :hs, :ws, :] = small
+    return canvas
+
+
+def make_candidates_fn(cfg: dict, apply_fn: Callable,
+                       decoder: Callable) -> Callable:
+    """``x -> (raw preds, candidates [B, N, 6])``: the plain forward's raw
+    preds and the candidates ``decoder`` makes of them, which go into the
+    NMS. With cfg ``tta`` the candidates of the flipped forward (cx
+    mirrored to W - cx) and of each scale (the batch shrunk into the
+    top-left of a gray canvas, each axis rescaled back by its exact
+    ratio) join the plain ones."""
+    tta = tta_options(cfg)
+    size = float(cfg["input_size"])
+
+    def candidates(x):
+        preds = apply_fn(x)
+        boxes = decoder(preds)
+        if tta is None:
+            return preds, boxes
+        extra = []
+        if tta["hflip"]:
+            flipped = decoder(apply_fn(torch.flip(x, dims=(2,))))
+            flipped[..., 0] = size - flipped[..., 0]
+            extra.append(flipped)
+        h, w = x.shape[1], x.shape[2]
+        for s in tta["scales"]:
+            hs, ws = max(1, round(h * s)), max(1, round(w * s))
+            cands = decoder(apply_fn(_scaled_canvas(x, hs, ws)))
+            sx, sy = w / ws, h / hs
+            cands[..., 0] *= sx
+            cands[..., 2] *= sx
+            cands[..., 1] *= sy
+            cands[..., 3] *= sy
+            extra.append(cands)
+        if extra:
+            boxes = torch.cat([boxes] + extra, dim=1)
+        return preds, boxes
+
+    return candidates
+
+
 def make_serve_fn(cfg: dict, apply_fn: Callable,
                   with_preds: bool = False) -> Callable:
     """The deployment graph: image batch -> (dets, valid).
 
-    ``apply_fn(x) -> raw preds`` is the frozen-weights forward.
-    ``with_preds=True`` also returns the raw preds first (the eval step
-    computes its loss on them)."""
-    if cfg.get("tta"):
-        raise NotImplementedError("tta is not ported yet (ROADMAP.md queue "
-                                  "1, item 4: the rest of NMS, and TTA)")
+    ``apply_fn(x) -> raw preds`` is the frozen-weights forward; the
+    candidates (with cfg ``tta`` those of every branch,
+    :func:`make_candidates_fn`) go through the one NMS.
+    ``with_preds=True`` also returns the plain forward's raw preds first
+    (the eval step computes its loss on them)."""
     decoder, nms = _decoder_and_nms(cfg)
+    candidates = make_candidates_fn(cfg, apply_fn, decoder)
 
     @torch.inference_mode()
     def serve(x):
-        preds = apply_fn(x)
-        dets, valid = nms(decoder(preds))
+        preds, boxes = candidates(x)
+        dets, valid = nms(boxes)
         if with_preds:
             return preds, dets, valid
         return dets, valid
@@ -237,12 +320,14 @@ def make_stats_step(cfg: dict) -> Callable:
     return stats_step
 
 
-# cfg options of podtpu's train step that the port does not run yet
-_UNPORTED_STEP = {
-    "remat_policy": "item 6: train-step options",
-    "remat_backbone": "item 6: train-step options",
-    "ema": "item 6: train-step options",
-}
+def remat_policy(cfg: dict) -> str | None:
+    """cfg ``remat_policy``: ``conv_out``, ``no_post_act`` or None (off);
+    see ``models/layers.py::remat_scope``."""
+    name = cfg.get("remat_policy") or None
+    if name is not None and name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy '{name}' "
+                         "(expected conv_out | no_post_act)")
+    return name
 
 
 def augment_seed(seed: int, step: int) -> int:
@@ -264,13 +349,17 @@ def make_train_step(cfg: dict) -> Callable:
     jittered and flipped with draws from a generator on their device,
     seeded from (cfg ``seed``, step). The BN running statistics move in
     the forward, from the batch statistics of the parameters before the
-    update."""
-    unported = [k for k in _UNPORTED_STEP if cfg.get(k)]
-    if unported:
-        raise NotImplementedError(
-            f"{unported} not ported yet (ROADMAP.md queue 1, "
-            + "; ".join(sorted({_UNPORTED_STEP[k] for k in unported})) + ")")
+    update.
+
+    With ``optimizer_options.skip_nonfinite`` the step reads two flags
+    from the device, one host synchronisation a step: whether the
+    gradients are finite (the optimizer's guard,
+    :meth:`TrainState.apply_gradients`) and whether they and the new BN
+    statistics are (else the statistics go back to the step's start, as
+    ``podtpu`` keeps a NaN out of them)."""
     loss_fn = build_loss(cfg)
+    policy = remat_policy(cfg)
+    guard = skip_nonfinite(cfg) > 0
     seed = int(cfg.get("seed", 0))
     device_aug = make_device_augment(cfg)
     device_geom = bool(cfg.get("device_geom", False))
@@ -297,15 +386,30 @@ def make_train_step(cfg: dict) -> Callable:
                         device=img.device)
                 gen.manual_seed(augment_seed(seed, state.step))
                 img, annot = device_aug(img, annot, gen)
-        with record_function("forward"):
+        if guard:
+            bns = [m for m in model.modules() if isinstance(m, BatchNormMixed)]
+            stats = [t for m in bns for t in (m.running_mean, m.running_var)]
+            start = [t.clone() for t in stats]
+        with record_function("forward"), remat_scope(policy):
             preds = model(_as_input(img))
         with record_function("loss"):
             loss = loss_fn(preds, annot)
-        state.optimizer.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
         with record_function("backward"):
             loss.backward()
         with record_function("optimizer"):
-            state.apply_gradients()
+            if guard:
+                grads = [p.grad for p in state.params() if p.grad is not None]
+                finite, stats_ok = torch.stack(
+                    [all_finite(grads), all_finite(stats)]).tolist()
+                if not (finite and stats_ok):
+                    with torch.no_grad():
+                        for t, t0 in zip(stats, start):
+                            t.copy_(t0)
+                state.apply_gradients(finite)
+            else:
+                state.apply_gradients()
+            state.update_ema()
         return state, {"loss": loss.detach()}
 
     return train_step
@@ -320,8 +424,8 @@ def make_multi_train_step(cfg: dict) -> Callable:
     same batches: each step sets the schedule's lr for its own update and
     advances the step counter, and the BN running statistics move in each
     forward. The losses stay on the device: nothing in the group waits for
-    the card, so the host queues all K steps and is free for the next
-    group's batches. (``podtpu`` scans the steps in one compiled program;
+    the card (but ``skip_nonfinite``'s flag, once a step), so the host
+    queues all K steps and is free for the next group's batches. (``podtpu`` scans the steps in one compiled program;
     here each step's kernels are queued as the single step queues them.)"""
     step = make_train_step(cfg)
 

@@ -10,8 +10,11 @@ train_yolov3.py:50-74):
 * validation every ``check_val_every_n_epoch`` epochs -> ``val_loss`` +
   ``val_mAP`` (module/yolov3_detector.py:33-47);
 * checkpoints (``torch.save`` of the model's and the optimizer's
-  ``state_dict`` and the step, one directory each): ``last`` every epoch,
-  ``best`` on min val_loss, periodic every ``save_freq``;
+  ``state_dict``, the counts, the gradient accumulator and the EMA shadow,
+  one directory each): ``last`` every epoch, ``best`` on min val_loss,
+  periodic every ``save_freq``;
+* with cfg ``ema`` (``ema.eval``, the default) validation and ``best``
+  on the shadow's weights;
 * early stopping on val_loss with patience counted in validation rounds
   (EarlyStopping(patience=30), train_yolov3.py:57-61);
 * SWA (cfg ``swa``): parameters averaged over the epochs from
@@ -20,8 +23,7 @@ train_yolov3.py:50-74):
   ``<save_dir>/<model>_<dataset>/version_N/`` (utils/utility.py:13-14),
   and with cfg ``log_images: N`` the first val batch's detections drawn.
 
-One process, one device: no mesh (ROADMAP.md queue 1, item 9). Options the
-port does not run yet raise :class:`NotImplementedError`.
+One process, one device: no mesh (ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -41,7 +43,13 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from podtpu_torch import resolve_device
 from podtpu_torch.config import make_model_name
 from podtpu_torch.metrics import MeanAveragePrecision
-from podtpu_torch.train.state import TrainState, create_train_state, param_count
+from podtpu_torch.train.state import (
+    TrainState,
+    create_train_state,
+    ema_options,
+    param_count,
+    total_notfinite,
+)
 from podtpu_torch.train.steps import (
     make_eval_step,
     make_multi_train_step,
@@ -65,10 +73,17 @@ def make_run_dir(cfg: dict) -> str:
     return run
 
 
+# the TrainState's counts, saved beside the model and the optimizer
+_COUNTS = ("step", "count", "mini_step", "notfinite_count",
+           "total_notfinite")
+
+
 class CheckpointIO:
     """Save/restore of the train state: ``{"model": state_dict,
-    "optimizer": state_dict, "step"}`` by ``torch.save`` into one directory
-    per checkpoint.
+    "optimizer": state_dict, "step", "count", "mini_step", "acc",
+    "notfinite_count", "total_notfinite"}`` and with cfg ``ema`` the
+    shadow under ``"ema"``, by ``torch.save`` into one directory per
+    checkpoint.
 
     A checkpoint directory is written whole under a temporary name and
     renamed into place, so a directory under a checkpoint's name is always
@@ -214,8 +229,11 @@ class CheckpointIO:
         payload = {
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
-            "step": int(state.step),
+            **{k: int(getattr(state, k)) for k in _COUNTS},
+            "acc": state.acc,
         }
+        if state.ema is not None:
+            payload["ema"] = state.ema
         staged = name in _STAGED
         key = name if staged else "periodic"
         # this target's pending write must end before its files are reused
@@ -262,13 +280,25 @@ class CheckpointIO:
 
     def restore(self, path: str, state: TrainState) -> TrainState:
         """Restore parameters, BN statistics, the optimizer's state (momentum
-        buffers onto the parameters' device) and the step into ``state``,
-        after every pending write has landed."""
+        buffers onto the parameters' device), the counts, the accumulator
+        and the EMA shadow into ``state``, after every pending write has
+        landed. A checkpoint from before these were saved has taken one
+        update a step; an EMA state restoring one without a shadow
+        reseeds it from the restored weights."""
         self.wait()
         payload = _load_payload(path, state)
         state.model.load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
+        state.count = int(payload.get("count", state.step))
+        for k in ("mini_step", "notfinite_count", "total_notfinite"):
+            setattr(state, k, int(payload.get(k, 0)))
+        state.acc = payload.get("acc")
+        if state.ema is not None:
+            if "ema" in payload:
+                state.ema = {k: v.float() for k, v in payload["ema"].items()}
+            else:
+                state.init_ema()
         return state
 
 
@@ -302,20 +332,44 @@ def make_preempt_handler(preempt):
 def restore_weights(path: str, state: TrainState,
                     use_ema: bool = False) -> TrainState:
     """Weights-only restore (parameters + BN statistics) into ``state``, for
-    eval/inference; the optimizer and the step stay as they were."""
+    eval/inference; the optimizer and the counts stay as they were.
+
+    ``use_ema=True`` loads the checkpoint's EMA shadow as the weights
+    (``ValueError`` when it has none). Either way the state keeps no
+    shadow afterwards: it carries only the weights chosen."""
+    payload = _load_payload(path, state)
     if use_ema:
-        raise NotImplementedError("use_ema (EMA weights) is not ported yet "
-                                  "(ROADMAP.md queue 1, item 6: train-step "
-                                  "options)")
-    state.model.load_state_dict(_load_payload(path, state)["model"])
+        if "ema" not in payload:
+            raise ValueError(
+                f"--use-ema: checkpoint {path} carries no EMA shadow (was "
+                "it trained with cfg `ema`?)")
+        weights = dict(payload["model"])
+        weights.update(payload["ema"])
+    else:
+        weights = payload["model"]
+    state.model.load_state_dict(weights)
+    state.ema = None
     return state
 
 
 def restore_eval_weights(path: str, state: TrainState, cfg: dict,
                          use_ema: bool | None = None) -> TrainState:
-    """CLI-facing restore: the weights evaluation should see. Without EMA
-    (not ported) these are the raw weights."""
-    return restore_weights(path, state, use_ema=bool(use_ema))
+    """CLI-facing restore: the weights evaluation should see.
+
+    ``use_ema=None`` (auto) does what the Trainer did: with cfg
+    ``ema.eval`` on, validation scored and ``best`` was chosen on the
+    shadow, so the shadow is loaded, and the raw weights where the
+    checkpoint has none; an explicit ``use_ema=True`` raises instead."""
+    auto = use_ema is None
+    if auto:
+        eo = ema_options(cfg)
+        use_ema = bool(eo and eo["eval"] and state.ema is not None)
+    try:
+        return restore_weights(path, state, use_ema=use_ema)
+    except ValueError:
+        if not auto:
+            raise
+        return restore_weights(path, state, use_ema=False)
 
 
 def put_batch(batch: dict, device: torch.device) -> dict:
@@ -340,22 +394,11 @@ def put_group(batches: list[dict], device: torch.device) -> dict:
     return out
 
 
-# cfg options of podtpu's Trainer that the port does not run yet
-_UNPORTED = {
-    "ema": "item 6: train-step options",
-}
-
-
 class Trainer:
     def __init__(self, cfg: dict, run_dir: str | None = None,
                  log: Callable[[str], None] = print,
                  device: str | torch.device | None = None,
                  eval_only: bool = False):
-        unported = [k for k in _UNPORTED if cfg.get(k)]
-        if unported:
-            raise NotImplementedError(
-                f"{unported} not ported yet (ROADMAP.md queue 1, "
-                + "; ".join(_UNPORTED[k] for k in unported) + ")")
         self.cfg = cfg
         self.log = log
         self.device = resolve_device(device)
@@ -370,6 +413,9 @@ class Trainer:
         self.multi_step = (make_multi_train_step(cfg)
                            if self._spd > 1 and not eval_only else None)
         self.eval_step = make_eval_step(cfg)
+        eopts = ema_options(cfg)
+        self._ema_eval = bool(eopts and eopts["eval"])
+        self._ema_model = None  # the model evaluation loads the shadow into
         self.map_metric = MeanAveragePrecision(
             cfg["num_classes"], cfg["input_size"]
         )
@@ -498,7 +544,8 @@ class Trainer:
                     raise RuntimeError("empty train loader")
                 train_loss = float(torch.stack(losses).mean())
                 step = self.state.step
-                lr = float(self.state.schedule(step))
+                # podtpu's logged lr: the schedule at step // accum_steps
+                lr = float(self.state.schedule(step // self.state.accum))
                 dt = time.time() - t_epoch
                 ips = n_images / dt if dt > 0 else 0.0
                 self.writer.add_scalar("train_loss", train_loss, step)
@@ -506,6 +553,15 @@ class Trainer:
                 self.writer.add_scalar("images_per_sec", ips, step)
                 row = {"epoch": epoch, "step": step, "train_loss": train_loss,
                        "lr": lr, "images_per_sec": ips}
+                skipped = total_notfinite(self.state)
+                if skipped is not None:
+                    self.writer.add_scalar("skipped_nonfinite_updates",
+                                           skipped, step)
+                    row["skipped_updates"] = skipped
+                    if skipped:
+                        self.log(f"WARNING: {skipped} non-finite update(s) "
+                                 "dropped so far (optimizer_options."
+                                 "skip_nonfinite guard)")
 
                 if (epoch + 1) % val_every == 0:
                     val = self.validate(val_loader)
@@ -627,7 +683,7 @@ class Trainer:
         val_loader.set_epoch(0)
         batch = next(iter(val_loader))
         batch.pop("n_valid", None)
-        _, dets, valid = self.eval_step(self.state,
+        _, dets, valid = self.eval_step(self._eval_state(),
                                         put_batch(batch, self.device))
         dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
         imgs = np.asarray(batch["img"][:n_img])
@@ -654,16 +710,31 @@ class Trainer:
             pass
         return [f"class{i}" for i in range(n)]
 
+    def _eval_state(self) -> TrainState:
+        """The state evaluation runs on: with cfg ``ema.eval`` a copy of
+        the model holding the EMA shadow's weights, else the training
+        state itself."""
+        if not (self._ema_eval and self.state.ema is not None):
+            return self.state
+        if self._ema_model is None:
+            self._ema_model = copy.deepcopy(self.state.model)
+        weights = self._ema_model.state_dict()
+        weights.update(self.state.ema)
+        self._ema_model.load_state_dict(weights)
+        return TrainState(self._ema_model, self.state.optimizer,
+                          self.state.schedule, self.state.step)
+
     def validate(self, val_loader) -> dict:
-        """val_loss + val_mAP over the full validation set, on the training
-        state itself (EMA weights are not ported)."""
+        """val_loss + val_mAP over the full validation set, on
+        :meth:`_eval_state`."""
         self.map_metric.reset_states()
         losses = []
         val_loader.set_epoch(0)
+        eval_state = self._eval_state()
         for batch in val_loader:
             n_valid = batch.pop("n_valid", batch["img"].shape[0])
             loss, dets, valid = self.eval_step(
-                self.state, put_batch(batch, self.device))
+                eval_state, put_batch(batch, self.device))
             losses.append(float(loss))
             # a padded final batch repeats its last sample: slice them off
             self.map_metric.update_state(batch["annot"][:n_valid],

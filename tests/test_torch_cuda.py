@@ -548,3 +548,97 @@ def test_step_profile_splits_the_backward_on_the_card(cuda):
     for row in ("conv", "activation", "bn"):
         assert abs(got.get(row, 0.0) - want[row]) <= 0.05 * total, \
             (row, detail)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [{"merge": True}, {"agnostic": True},
+                                  {"classes": (0, 14)}])
+def test_nms_options_through_the_kernel_match_the_cpu(cuda, opts):
+    """Merge (on the kernel's keep mask over dense overlapping boxes),
+    agnostic and the class filter on the card against the same call on the
+    CPU (the plain suppression): valid masks exactly, merged boxes within
+    float32 rounding of the [K, K] @ [K, 4] product (TF32 off)."""
+    from podtpu_torch.ops.nms import batched_class_aware_nms
+
+    r = np.random.default_rng(11)
+    boxes = np.zeros((8, 2000, 6), np.float32)
+    boxes[..., 0:2] = r.uniform(100, 140, (8, 2000, 2))
+    boxes[..., 2:4] = r.uniform(40, 80, (8, 2000, 2))
+    boxes[..., 4] = r.uniform(0, 1, (8, 2000))
+    boxes[..., 5] = r.integers(0, 20, (8, 2000))
+    boxes = torch.from_numpy(boxes)
+    before = greedy_suppress.launches
+    got = batched_class_aware_nms(boxes.to(cuda), **opts)
+    torch.cuda.synchronize()
+    assert greedy_suppress.launches == before + 1
+    want = batched_class_aware_nms(boxes, **opts)
+    assert torch.equal(got[1].cpu(), want[1]) and bool(want[1].any())
+    assert (got[0].cpu() - want[0]).abs().max() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_multilabel_serving_through_the_kernel(cuda):
+    """Multi-label decoding of YOLOv3 heads (20 classes: N = 84 x 3 x 20
+    at 64 px) and NMS on the card against the CPU."""
+    from podtpu_torch.ops.decode import decode_yolov3
+    from podtpu_torch.ops.nms import batched_class_aware_nms
+
+    anchors = [[10, 13], [16, 30], [33, 23], [30, 61], [62, 45], [59, 119],
+               [116, 90], [156, 198], [373, 326]]
+    r = np.random.default_rng(12)
+    heads = [torch.from_numpy(r.normal(0, 2, (4, s, s, 75))
+                              .astype(np.float32)) for s in (8, 4, 2)]
+    cpu = decode_yolov3(heads, 20, anchors, 64, multi_label=True)
+    card = decode_yolov3([h.to(cuda) for h in heads], 20, anchors, 64,
+                         multi_label=True)
+    assert card.shape == (4, 84 * 3 * 20, 6)
+    # exp / sigmoid to float32 rounding (boxes up to ~1e3 px)
+    assert ((card.cpu() - cpu).abs() <= 1e-4 + 1e-5 * cpu.abs()).all()
+    before = greedy_suppress.launches
+    got = batched_class_aware_nms(cpu.to(cuda))
+    torch.cuda.synchronize()
+    assert greedy_suppress.launches == before + 1
+    want = batched_class_aware_nms(cpu)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu(), want[0])
+
+
+@pytest.mark.cuda
+def test_rejected_step_leaves_the_card_state_bit_for_bit(cuda):
+    """skip_nonfinite on the card: a batch with a NaN pixel leaves the
+    parameters, momentum, counts and BN statistics as they were, bit for
+    bit, with the stem's kernels launched as on any step."""
+    from podtpu_torch.data.loader import pad_annotations
+    from podtpu_torch.train.state import create_train_state
+    from podtpu_torch.train.steps import make_train_step
+
+    anchors = [[10, 13], [16, 30], [33, 23], [30, 61], [62, 45], [59, 119],
+               [116, 90], [156, 198], [373, 326]]
+    cfg = {"model": "yolov3", "num_classes": 20, "anchors": anchors,
+           "input_size": 64, "compute_dtype": "float32", "max_annots": 8,
+           "optimizer": "sgd", "scheduler": None,
+           "optimizer_options": {"lr": 1e-3, "momentum": 0.9,
+                                 "nesterov": True, "weight_decay": 5e-4,
+                                 "skip_nonfinite": 2}}
+    torch.manual_seed(0)
+    state = create_train_state(cfg, cuda)
+    step = make_train_step(cfg)
+    r = np.random.default_rng(0)
+    img = torch.from_numpy(r.random((2, 64, 64, 3), np.float32)).to(cuda)
+    annot = torch.from_numpy(pad_annotations(
+        [np.array([[0.5, 0.5, 0.3, 0.4, 3]], np.float32)] * 2, 8)).to(cuda)
+    state, _ = step(state, {"img": img, "annot": annot})
+    sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+    mom = [s["momentum_buffer"].clone() for s in state.optimizer.state.values()]
+    bad = img.clone()
+    bad[0, 3, 3, 0] = float("nan")
+    before = dict(sk.stem_fused.launches)
+    state, m = step(state, {"img": bad, "annot": annot})
+    torch.cuda.synchronize()
+    assert not torch.isfinite(m["loss"])
+    assert all(v == before[k] + 1 for k, v in sk.stem_fused.launches.items())
+    assert (state.step, state.count, state.total_notfinite) == (2, 1, 1)
+    assert all(torch.equal(v, state.model.state_dict()[k])
+               for k, v in sd.items())
+    assert all(torch.equal(a, s["momentum_buffer"]) for a, s in
+               zip(mom, state.optimizer.state.values()))

@@ -300,7 +300,6 @@ def cli_env(ckpts, synth, podtpu_cli, tmp_path):
 @pytest.mark.parametrize("name,extra,item", [
     ("test", ["--artifact", "a.tflite"], "item 10"),
     ("test", ["--quantize", "int8"], "item 10"),
-    ("test", ["--use-ema"], "item 6"),
     ("inference", ["--artifact", "a.tflite"], "item 10"),
     ("make_pred_file", ["--artifact", "a.tflite"], "item 10"),
     ("yolo2coco_pred_file", ["--artifact", "a.tflite"], "item 10"),

@@ -95,13 +95,6 @@ def test_nms_padded_pads_past_k():
     np.testing.assert_array_equal(out.numpy(), np.asarray(want_out)[0])
 
 
-@pytest.mark.parametrize("opt", [dict(agnostic=True), dict(merge=True),
-                                 dict(classes=(1, 2))])
-def test_unported_nms_options_raise(opt):
-    with pytest.raises(NotImplementedError):
-        batched_class_aware_nms(torch.zeros(1, 8, 6), **opt)
-
-
 def test_cuda_entry_point_raises_on_cpu_tensor():
     boxes = torch.zeros(1, 8, 4)
     valid = torch.ones(1, 8, dtype=torch.bool)

@@ -171,14 +171,6 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
     assert podtpu_torch.resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("cfg", [dict(tta=True),
-                                 dict(nms_options={"merge": True}),
-                                 dict(nms_options={"multi_label": True})])
-def test_unported_serving_options_raise(cfg):
-    with pytest.raises(NotImplementedError):
-        make_serve_fn(yolo_cfg(**cfg), lambda x: x)
-
-
 @pytest.mark.parametrize(
     "path", sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml"))),
     ids=os.path.basename)

@@ -387,27 +387,6 @@ def test_decay_policy_family_defaults(model, policy):
     assert decay_policy({"model": model}) == policy
 
 
-@pytest.mark.parametrize("opts", [{"optimizer": "adam"},
-                                  {"optimizer": "radam"},
-                                  {"optimizer_options": {"lr": 1, "flat": True}},
-                                  {"optimizer_options": {"lr": 1,
-                                                         "accum_steps": 2}},
-                                  {"optimizer_options": {"lr": 1,
-                                                         "skip_nonfinite": 3}}])
-def test_unported_optimizer_options_raise(opts):
-    cfg = {"model": "yolov3", "optimizer": "sgd",
-           "optimizer_options": {"lr": 1}, **opts}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_optimizer(cfg, _tiny_block())
-
-
-@pytest.mark.parametrize("extra", [{"remat_policy": "conv_out"},
-                                   {"ema": True}])
-def test_unported_train_step_options_raise(extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(yolo_cfg(**extra))
-
-
 def test_pad_annotations_matches_podtpu():
     r = np.random.default_rng(3)
     boxes = [r.uniform(0, 1, (n, 5)).astype(np.float32) for n in (0, 3, 9)]

@@ -29,13 +29,12 @@ from podtpu_torch.metrics import map as tmap
 from podtpu_torch.native import build as native_build
 from podtpu_torch.native import native_class_tp_fp
 from podtpu_torch.train.run import make_loaders, train
-from podtpu_torch.train.steps import make_eval_step, make_serve_fn
+from podtpu_torch.train.steps import make_eval_step
 from podtpu_torch.train.trainer import (
     CheckpointIO,
     Trainer,
     put_batch,
     restore_eval_weights,
-    restore_weights,
 )
 from tests.torch_parity import flax_variables, podtpu_flat_weights
 
@@ -483,23 +482,10 @@ def test_early_stopping_counts_validation_rounds(synth, tmp_path,
                                                     ("last", 6)]
 
 
-@pytest.mark.parametrize("extra", [
-    {"ema": {"decay": 0.999}},
-], ids=lambda e: next(iter(e)))
-def test_unported_trainer_options_raise(synth, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        Trainer(_cfg(synth, tmp_path, **extra), device="cpu", log=quiet)
-
-
 def test_unported_eval_options_raise(synth, tmp_path):
     cfg = _cfg(synth, tmp_path)
     with pytest.raises(NotImplementedError, match="item 10"):
         make_eval_step(cfg, extra_variables={"quant": {}})
-    with pytest.raises(NotImplementedError, match="tta"):
-        make_serve_fn(dict(cfg, tta=True), lambda x: x, with_preds=True)
-    trainer = Trainer(cfg, device="cpu", log=quiet, eval_only=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        restore_weights(str(tmp_path), trainer.state, use_ema=True)
 
 
 def test_entry_points_default_to_cuda(synth, tmp_path, monkeypatch):
