@@ -175,6 +175,28 @@ raising on failure:
    step with and without the guard. Then one epoch of phase 9's run with
    ``ema: true`` and ``accum_steps: 2`` through ``train.run.train`` and
    ``cli.test --use-ema`` on its ``best`` (the fit's own val_loss).
+19. pretrain: ``cli.pretrain_darknet`` (``pretrain``) for one epoch at
+   64 px, B=128, on a generated 20 x 16-image classification set (the
+   stem's four kernels once a step), Darknet-19 classifier steps at 224
+   and 64 px (B=128) and CSPDarknet53's at 224 px (B=32, no stem launch),
+   each with ms, img/s, the card's idle share, launches and peak GB; the
+   stem kernels against their plain versions at both sizes (B=8 with the
+   planted faults, B=128 timed beside the bound); the written ``.npz`` loaded into
+   ``configs/yolov3_voc.yaml`` through ``backbone_pretrained``, every
+   backbone tensor bit for bit.
+20. export: YOLOv3-416 on phase 3's weights exported as ``.pt2`` serving
+   artifacts at B=8 and with a symbolic batch, loaded and held to the
+   in-process ``make_serve_fn`` (valid masks equal, boxes and scores
+   within 1e-4), the suppression launched once a call from inside the
+   loaded program, ms against in-process serving; a forward artifact
+   through ``validate_for_npu`` (the serving one must fail);
+   ``fold_batchnorm`` in float32; int8 PTQ calibrated on 4 val batches of
+   phase 9's files: every block's int32 accumulator in the quantized eval
+   step equal to the plain float64 version's, int8 against bf16 forward
+   ms, the score drift; ``cli.export_model`` then ``cli.test --artifact``
+   on phase 9's ``best`` against ``cli.test --ckpt`` (val_mAP within
+   1e-6, and each batch's detections handed to the host mAP held as the
+   artifacts above).
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -193,6 +215,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from contextlib import nullcontext
 
 import numpy as np
@@ -700,16 +723,17 @@ def stem_dtype_checks(sk, dtype, dev, size, seed):
     return c
 
 
-def stem_timing(sk, dev, size, seed):
-    """At the train step's shape (B=64, ``size`` px, bf16): the per-kernel
-    checks again, then each kernel timed beside its bound and its plain
-    version. Returns (checks, max_abs_err per kernel, timing, operands)."""
-    x, w, scale, bias, g = stem_inputs(64, torch.bfloat16, dev, seed, size)
+def stem_timing(sk, dev, size, seed, b=64):
+    """At the train step's shape (B=``b``, ``size`` px, bf16): the
+    per-kernel checks again, then each kernel timed beside its bound and
+    its plain version. Returns (checks, max_abs_err per kernel, timing,
+    operands)."""
+    x, w, scale, bias, g = stem_inputs(b, torch.bfloat16, dev, seed, size)
     ok, checks, max_err, vecs, _ = stem_kernel_checks(
         sk, x, w, scale, bias, g, 1e-5)
     if not ok:
         raise AssertionError(f"stem kernels differ from their plain versions "
-                             f"at B=64 bf16, {size} px: {checks}")
+                             f"at B={b} bf16, {size} px: {checks}")
     mul, add, mean, rinv = vecs[:4]
     args = {"stats": (x, w), "emit": (x, w, mul, add),
             "bwd_sums": (x, w, mul, add, mean, rinv, g),
@@ -721,7 +745,7 @@ def stem_timing(sk, dev, size, seed):
              "bwd_dw": sk.stem_bwd_dw_reference}
     timing = {}
     for k in STEM_REPLACES:
-        bound_ms, bound_by, terms = stem_bound(k, 64, size, size, 2)
+        bound_ms, bound_by, terms = stem_bound(k, b, size, size, 2)
         timing[k] = {"ms": cuda_ms(lambda: kern[k](*args[k]), 20),
                      "plain_ms": cuda_ms(lambda: plain[k](*args[k]), 5),
                      "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1592,7 +1616,9 @@ def consume_phase(fit: dict, dev, card, tmp: str) -> dict:
                           "mismatches": int((got != want).sum())}
         boxes, valid = real
         suppress_b1 = {"ms": cuda_ms(lambda: greedy_suppress(
-            boxes, valid, thr), 200, warmup=10)}
+            boxes, valid, thr), 200, warmup=10), "op_ms": cuda_ms(
+            lambda: torch.ops.podtpu_torch.greedy_suppress(
+                boxes, valid, thr), 200, warmup=10)}
         suppress_b1["device_ms"], suppress_b1["device_ms_by"] = device_ms(
             lambda: greedy_suppress(boxes, valid, thr))
         suppress_b1["plain_ms"] = cuda_ms(
@@ -3354,10 +3380,10 @@ def options_fit(fit, dev, tmp):
     return rec, _add_counts(fit_launches, test_launches)
 
 
-def _write_yaml(cfg, tmp):
+def _write_yaml(cfg, tmp, name="options.yaml"):
     import yaml
 
-    path = os.path.join(tmp, "options.yaml")
+    path = os.path.join(tmp, name)
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     return path
@@ -3384,6 +3410,457 @@ def options_phase(cfg, flat, dev, card, fit, images, tmp):
     if failed:
         raise AssertionError(f"the options phase failed its checks: {failed}")
     return launches
+
+
+# ---- phase 19: backbone pretraining ----------------------------------------
+
+# (px, batch) of the pretraining shapes: pretrain_darknet's default 224 px
+# at B=128, and generate_classification's 64 px images at the same batch
+PRETRAIN_SHAPES = ((224, 128), (64, 128))
+
+
+def classifier_steps(name, size, batch, steps, dev, seed):
+    """``steps`` pretrain steps (``cli/pretrain_darknet.py::
+    make_pretrain_step``, bf16) of a 20-class classifier on a batch on the
+    card, after 2 warm-up steps; the kernel counters zeroed just before the
+    timed steps and read just after. Returns ms a step (CUDA events),
+    img/s, the card's busy ms a step and idle share (a profiled run of as
+    many steps after them), the launches, peak GB and the last loss."""
+    from podtpu_torch.cli import pretrain_darknet as pd
+    from podtpu_torch.train.schedule import cosine_decay_schedule
+
+    torch.manual_seed(seed)
+    model = pd.build_classifier(name, 20, torch.bfloat16, dev)
+    step = pd.make_pretrain_step(model, pd.make_optimizer(model, 0.1),
+                                 cosine_decay_schedule(0.1, 100))
+    r = np.random.default_rng(seed)
+    imgs = torch.from_numpy(r.random((batch, size, size, 3),
+                                     np.float32)).to(dev)
+    labels = torch.from_numpy(r.integers(0, 20, batch)).to(dev)
+    for i in range(2):
+        step(imgs, labels, i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    _zero_counts()
+    start.record()
+    for i in range(steps):
+        loss, acc = step(imgs, labels, 2 + i)
+    end.record()
+    end.synchronize()
+    launches = _counts()
+    ms = start.elapsed_time(end) / steps
+    # the card's busy time a step, from a profiler trace of as many steps:
+    # what the step's wall time holds beyond it is the card waiting
+    it = iter(range(2 + steps, 3 + 2 * steps))
+    busy_ms = profiler_ms(lambda: step(imgs, labels, next(it)), steps)
+    rec = {"model": name, "size": size, "batch": batch, "steps": steps,
+           "ms_per_step": ms, "img_per_s": batch * 1e3 / ms,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": max(0.0, 1.0 - busy_ms / ms),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss": float(loss), "acc": float(acc), "launches": launches}
+    del model, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def pretrain_phase(dev, card, tmp):
+    """Phase 19: ``cli.pretrain_darknet`` for 1 epoch at 64 px on a
+    generated 20 x 16-image set, Darknet-19 steps at 224 and 64 px (B=128)
+    and CSPDarknet53 steps at 224 px (B=32), the stem kernels against
+    their plain versions at both sizes, and the written ``.npz`` through
+    cfg ``backbone_pretrained`` into configs/yolov3_voc.yaml. Returns the
+    launches of the main path and the stem kernels' numbers at both
+    sizes."""
+    from podtpu_torch.cli import pretrain_darknet as pd
+    from podtpu_torch.config import get_configs
+    from podtpu_torch.data.synthetic import generate_classification
+    from podtpu_torch.export.weights import flat_from_state_dict
+    from podtpu_torch.ops.kernels import stem_kernel as sk
+    from podtpu_torch.train.state import create_train_state
+
+    t_phase = time.perf_counter()
+    data = os.path.join(tmp, "classification")
+    generate_classification(data, n_per_class=16, size=64, num_classes=20,
+                            seed=SEED)
+    out = os.path.join(tmp, "darknet19_pretrained.npz")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = pd.pretrain(data, size=64, batch=128, epochs=1, lr=0.1, out=out,
+                      model_name="darknet19", device=dev,
+                      log=lambda *a: None)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launches = _counts()
+    epoch = res["epochs"][0]
+    cli = {"images": 320, "steps": epoch["steps"], "seconds": cli_s,
+           "epoch_seconds": epoch["seconds"],
+           "ms_per_step_with_loading": epoch["seconds"] * 1e3
+           / max(1, epoch["steps"]),
+           "img_per_s_with_loading": 128 * epoch["steps"]
+           / epoch["seconds"], "loss": epoch["loss"], "acc": epoch["acc"],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": cli_launches}
+    del res
+    torch.cuda.empty_cache()
+
+    steps = {f"darknet19_{size}px_B{b}": classifier_steps(
+        "darknet19", size, b, 5, dev, SEED + size) for size, b in
+        PRETRAIN_SHAPES}
+    steps["cspdarknet53_224px_B32"] = classifier_steps(
+        "cspdarknet53", 224, 32, 3, dev, SEED + 1)
+
+    # the stem kernels against their plain versions at both sizes: B=8
+    # with the planted faults, the train step's B=128 with the timing
+    stem = {}
+    for size, b in PRETRAIN_SHAPES:
+        checks_b8 = stem_dtype_checks(sk, torch.bfloat16, dev, size,
+                                      SEED + 30 + size)
+        checks, max_err, timing, _ = stem_timing(sk, dev, size,
+                                                 SEED + 31 + size, b=b)
+        stem[size] = {"batch": b, "checks_B8": checks_b8,
+                      f"checks_B{b}": checks, "max_abs_err": max_err,
+                      "timing": timing}
+        torch.cuda.empty_cache()
+
+    # the .npz into a detector config, bit for bit
+    with np.load(out) as npz:
+        saved = {k: npz[k] for k in npz.files}
+    backbone = {k: v for k, v in saved.items() if "::backbone::" in k}
+    cfg3 = get_configs(os.path.join(REPO, "configs", "yolov3_voc.yaml"))
+    cfg3["backbone_pretrained"] = out
+    state = create_train_state(cfg3, dev)
+    loaded = flat_from_state_dict(state.model)
+    differing = [k for k, v in backbone.items()
+                 if not np.array_equal(loaded[k], v)]
+    del state, loaded
+    torch.cuda.empty_cache()
+
+    checks = {
+        "cli_one_launch_per_step": all(
+            cli_launches[f"stem_{k}"] == epoch["steps"] == 2
+            for k in STEM_REPLACES),
+        "cli_no_suppression": cli_launches["greedy_suppress"] == 0,
+        "cli_loss_finite": bool(np.isfinite(epoch["loss"])),
+        "darknet19_one_launch_per_step": all(
+            r["launches"][f"stem_{k}"] == r["steps"]
+            for n, r in steps.items() if n.startswith("darknet19")
+            for k in STEM_REPLACES),
+        "cspdarknet53_no_stem": not any(
+            steps["cspdarknet53_224px_B32"]["launches"].values()),
+        "losses_finite": all(np.isfinite(r["loss"]) for r in steps.values()),
+        "npz_backbone_tensors": len(backbone) == 90,
+        "backbone_bit_for_bit": not differing,
+    }
+    emit({"phase": "pretrain", "cli": cli, "steps": steps,
+          "stem_kernels": {str(k): v for k, v in stem.items()},
+          "backbone_pretrained": {"config": "configs/yolov3_voc.yaml",
+                                  "tensors": len(backbone),
+                                  "differing": differing},
+          "checks": checks, "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    if not all(checks.values()):
+        raise AssertionError(f"the pretrain phase failed its checks: "
+                             f"{ {k: v for k, v in checks.items() if not v} }")
+    launches = cli_launches
+    for r in steps.values():
+        launches = _add_counts(launches, r["launches"])
+    return launches, stem
+
+
+# ---- phase 20: the export path ----------------------------------------------
+
+ARTIFACT_TOL = 1e-4
+
+
+def _dets_close(got, want):
+    """(ok, stats): valid masks equal; boxes within 1e-4 of their size and
+    scores within 1e-4 on the valid rows (float32)."""
+    (gd, gv), (wd, wv) = got, want
+    same_valid = bool(torch.equal(gv, wv))
+    if not same_valid:
+        return False, {"valid_equal": False}
+    g, w = gd[gv].double(), wd[wv].double()
+    box = float(((g[:, :4] - w[:, :4]).abs()
+                 / w[:, :4].abs().clamp_min(1.0)).max()) if len(g) else 0.0
+    score = float((g[:, 4] - w[:, 4]).abs().max()) if len(g) else 0.0
+    cls = bool(torch.equal(g[:, 5], w[:, 5]))
+    return (box <= ARTIFACT_TOL and score <= ARTIFACT_TOL and cls), {
+        "valid_equal": True, "valid": int(gv.sum()), "box_rel": box,
+        "score_abs": score, "classes_equal": cls}
+
+
+def cli_test_batches(cli_test, argv_artifact, argv_ckpt, counted):
+    """``cli.test --artifact`` and ``cli.test --ckpt`` on the same val
+    files, each batch they hand the host mAP recorded: ``(got, want,
+    per_batch, ok, launches)``. ``ok`` holds the annotations equal, the
+    detections within :func:`_dets_close`, batch for batch, and some
+    detection valid, so that agreeing maps of nothing fail. ``counted``
+    wraps the artifact's run and returns its result and launch counts."""
+    from podtpu_torch.metrics.map import MeanAveragePrecision
+
+    real = MeanAveragePrecision.update_state
+    fed = {"artifact": [], "ckpt": []}
+
+    def recording(into):
+        def update_state(self, annots, detections, valid):
+            into.append(tuple(np.array(a) for a in (annots, detections,
+                                                     valid)))
+            return real(self, annots, detections, valid)
+        return update_state
+
+    try:
+        MeanAveragePrecision.update_state = recording(fed["artifact"])
+        got, launches = counted(lambda: cli_test.main(argv_artifact))
+        MeanAveragePrecision.update_state = recording(fed["ckpt"])
+        want = cli_test.main(argv_ckpt)
+    finally:
+        MeanAveragePrecision.update_state = real
+    per_batch = []
+    ok = len(fed["artifact"]) == len(fed["ckpt"]) > 0
+    for (ga, gd, gv), (wa, wd, wv) in zip(fed["artifact"], fed["ckpt"]):
+        close, stats = _dets_close(
+            (torch.from_numpy(gd), torch.from_numpy(gv)),
+            (torch.from_numpy(wd), torch.from_numpy(wv)))
+        stats["annots_equal"] = bool(np.array_equal(ga, wa))
+        per_batch.append(stats)
+        ok = ok and close and stats["annots_equal"]
+    ok = ok and sum(s.get("valid", 0) for s in per_batch) > 0
+    return got, want, per_batch, ok, launches
+
+
+def export_phase(cfg, flat, dev, card, fit, images, tmp):
+    """Phase 20: the export path on YOLOv3-416 with phase 3's weights:
+    serving artifacts at B=8 and with a symbolic batch against the
+    in-process ``make_serve_fn`` (the suppression launched once a call
+    from inside the loaded program), artifact against in-process ms, the
+    NPU checks, BN folding, int8 PTQ (every block's int32 accumulator on
+    the card against the plain float64 version, int8 against bf16 forward
+    ms, the score drift) and ``cli.test --artifact`` against ``--ckpt`` on
+    phase 9's files. Returns the launches of the main path."""
+    from podtpu_torch.cli import export_model as cli_export
+    from podtpu_torch.cli import test as cli_test
+    from podtpu_torch.data.dataset import build_datasets
+    from podtpu_torch.data.loader import Loader
+    from podtpu_torch.export import npu, program, quantize
+    from podtpu_torch.export.weights import load_flat_weights
+    from podtpu_torch.models.factory import build_model
+    from podtpu_torch.models.layers import ConvBnAct
+    from podtpu_torch.ops import int8_conv
+    from podtpu_torch.train.steps import make_eval_step, make_serve_fn
+
+    t_phase = time.perf_counter()
+    model = load_flat_weights(build_model(cfg, dev), flat).eval()
+    x8 = images[8].float() / 255.0
+    serve = make_serve_fn(cfg, model)
+    want8, want3 = serve(x8), serve(x8[:3])
+    artifacts, launches, checks = {}, {k: 0 for k in _counts()}, {}
+    for tag, shape in (("B8", (8, 416, 416, 3)), ("dyn", (None, 416, 416,
+                                                          3))):
+        path = os.path.join(tmp, f"yolov3_serving_{tag}.pt2")
+        t0 = time.perf_counter()
+        program.export_serving(model, cfg, shape, path)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn = program.load_exported(path)
+        load_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        _zero_counts()
+        got = fn(x8)
+        torch.cuda.synchronize()
+        one = _counts()
+        got_again = fn(x8)
+        torch.cuda.synchronize()
+        two = _counts()
+        launches = _add_counts(launches, two)
+        ok8, close8 = _dets_close(got, want8)
+        rec = {"export_s": export_s, "load_s": load_s,
+               "bytes": os.path.getsize(path), "B8": close8,
+               "launches_one_call": one, "launches_two_calls": two,
+               "repeat_equal": bool(torch.equal(got[0], got_again[0]))}
+        ok = (ok8 and one["greedy_suppress"] == 1
+              and two["greedy_suppress"] == 2
+              and not any(v for k, v in two.items() if k.startswith("stem")))
+        if tag == "dyn":
+            ok3, rec["B3"] = _dets_close(fn(x8[:3]), want3)
+            ok = ok and ok3
+        rec["ms_artifact_B8"] = cuda_ms(lambda: fn(x8), 10)
+        rec["ms_in_process_B8"] = cuda_ms(lambda: serve(x8), 10)
+        # the card's busy ms a call (profiler): the rest of the wall time
+        # is the card waiting on the host
+        rec["device_busy_ms_artifact_B8"] = profiler_ms(lambda: fn(x8), 10)
+        rec["device_busy_ms_in_process_B8"] = profiler_ms(
+            lambda: serve(x8), 10)
+        rec["info"] = {k: v for k, v in program.inspect_exported(
+            path).items() if k != "ops"}
+        checks[f"artifact_{tag}"] = ok
+        artifacts[tag] = rec
+    ops = program.inspect_exported(os.path.join(
+        tmp, "yolov3_serving_B8.pt2"))["ops"]
+
+    # the NPU checks: a forward artifact passes, the serving one fails
+    fwd = program.export_program(model, (1, 416, 416, 3),
+                                 os.path.join(tmp, "yolov3_forward.pt2"))
+    report = npu.validate_for_npu(fwd)
+    try:
+        npu.validate_for_npu(os.path.join(tmp, "yolov3_serving_B8.pt2"))
+        serving_unsupported = None
+    except npu.NPUValidationError as e:
+        serving_unsupported = e.unsupported
+    ann = npu.annotate_for_npu(fwd)
+    checks["npu_forward_passes"] = report["ok"]
+    checks["npu_serving_fails"] = bool(
+        serving_unsupported
+        and "podtpu_torch.greedy_suppress" in serving_unsupported)
+
+    # BN folding, float32 (TF32 off since phase 5)
+    cfg32 = dict(cfg, compute_dtype="float32")
+    m32 = load_flat_weights(build_model(cfg32, dev), flat).eval()
+    folded = build_model(cfg32, dev).eval()
+    folded.load_state_dict(npu.fold_batchnorm(m32.state_dict()))
+    with torch.inference_mode():
+        fold_rel = max(rel_err(a, b) for a, b in zip(folded(x8[:2]),
+                                                     m32(x8[:2])))
+    checks["fold_batchnorm"] = fold_rel <= 1e-5
+    del m32, folded
+    torch.cuda.empty_cache()
+
+    # int8: calibrate on 4 val batches of phase 9's files
+    fit_cfg = dict(fit["cfg"])
+    _, val_ds = build_datasets(fit_cfg)
+    calib = []
+    for batch in Loader(val_ds, batch_size=8, shuffle=False,
+                        max_annots=fit_cfg["max_annots"], workers=4):
+        calib.append(batch["img"].astype(np.float32) / 255.0)
+        if len(calib) == 4:
+            break
+    t0 = time.perf_counter()
+    qvars = quantize.build_quant_variables(model, quantize.calibrate(
+        model, calib))
+    calib_s = time.perf_counter() - t0
+    n_blocks = sum(isinstance(m, ConvBnAct) for m in model.modules())
+    # every block's accumulator in the quantized eval step (B=1), recorded
+    # where the block calls the int8 convolution, against the plain
+    # float64 version on the same int8 operands on the host
+    seen = []
+    real = int8_conv.int8_conv2d
+
+    def record(x, w, stride=1, padding=0):
+        acc = real(x, w, stride, padding)
+        seen.append((x, w, stride, padding, acc))
+        return acc
+
+    batch1 = {"img": images[8][:1],
+              "annot": -torch.ones((1, cfg["max_annots"], 5), device=dev)}
+    step = make_eval_step(cfg, extra_variables=qvars)
+    state = types.SimpleNamespace(model=model)
+    int8_conv.int8_conv2d = record
+    try:
+        _zero_counts()
+        step(state, batch1)
+        torch.cuda.synchronize()
+        step_launches = _counts()
+    finally:
+        int8_conv.int8_conv2d = real
+    launches = _add_counts(launches, step_launches)
+    t0 = time.perf_counter()
+    acc_mismatch = {}
+    for i, (x, w, s_, p_, acc) in enumerate(seen):
+        ref = int8_conv.int8_conv2d_reference(x.cpu(), w.cpu(), s_, p_)
+        n_bad = int((acc.cpu() != ref).sum())
+        if n_bad or acc.dtype != torch.int32:
+            acc_mismatch[i] = n_bad
+    exact_s = time.perf_counter() - t0
+    checks["int8_blocks"] = len(seen) == len(qvars["quant"]) == n_blocks
+    checks["int8_accumulators_exact"] = not acc_mismatch
+    checks["int8_step_one_suppression"] = \
+        step_launches["greedy_suppress"] == 1
+    q_dev = {p: {k: v.to(dev) for k, v in q.items()}
+             for p, q in qvars["quant"].items()}
+    with torch.inference_mode():
+        bf16_ms = cuda_ms(lambda: model(x8), 10)
+        float_heads = [h.clone() for h in model(x8)]
+        float_dets = serve(x8)
+        with quantize.quant_scope(model, q_dev):
+            int8_ms = cuda_ms(lambda: model(x8), 10)
+            int8_heads = model(x8)
+            int8_dets = serve(x8)
+    drift = []
+    for b in range(8):
+        fs = float_dets[0][b][float_dets[1][b]][:, 4].sort(
+            descending=True).values
+        qs = int8_dets[0][b][int8_dets[1][b]][:, 4].sort(
+            descending=True).values
+        n = min(len(fs), len(qs))
+        drift.append(float((fs[:n] - qs[:n]).abs().mean()) if n else 0.0)
+    int8 = {"blocks": len(qvars["quant"]), "calibration_s": calib_s,
+            "calibration_batches": 4,
+            "accumulators_checked": len(seen),
+            "accumulator_mismatches": acc_mismatch,
+            "exactness_check_s": exact_s,
+            "forward_ms_B8": {"int8": int8_ms, "bf16": bf16_ms},
+            "heads_rel_err_vs_bf16": [rel_err(a, b) for a, b in
+                                      zip(int8_heads, float_heads)],
+            "score_drift_mean_abs_per_image": drift,
+            "valid_float_vs_int8": [int(float_dets[1].sum()),
+                                    int(int8_dets[1].sum())],
+            "launches_eval_step": step_launches}
+
+    # cli.test --artifact against --ckpt on phase 9's files
+    yaml_path = _write_yaml(fit_cfg, tmp, "export_fit.yaml")
+    art = cli_export.main(["--cfg", yaml_path, "--ckpt", fit["best"],
+                           "--with-postprocess", "--batch", "dyn", "--out",
+                           os.path.join(tmp, "best_serving.pt2"),
+                           "--device", dev.type])
+    def counted(run):
+        torch.cuda.synchronize()
+        _zero_counts()
+        out = run()
+        torch.cuda.synchronize()
+        return out, _counts()
+
+    got, want, per_batch, same_batches, test_launches = cli_test_batches(
+        cli_test, ["--cfg", yaml_path, "--artifact", art],
+        ["--cfg", yaml_path, "--ckpt", fit["best"], "--device", dev.type],
+        counted)
+    launches = _add_counts(launches, test_launches)
+    scored = {"artifact_val_mAP": got["val_mAP"],
+              "ckpt_val_mAP": want["val_mAP"], "per_batch": per_batch,
+              "launches_test_artifact": test_launches}
+    checks["cli_test_artifact_mAP"] = \
+        abs(got["val_mAP"] - want["val_mAP"]) <= 1e-6
+    checks["cli_test_artifact_batches"] = same_batches
+    checks["cli_test_artifact_launches"] = \
+        test_launches["greedy_suppress"] == 2
+    emit({"phase": "export", "config": "configs/yolov3_voc.yaml",
+          "artifacts": artifacts, "serving_ops": ops,
+          "npu": {"forward_ok": report["ok"],
+                  "forward_distinct_ops": len(report["ops"]),
+                  "serving_unsupported": serving_unsupported,
+                  "forward_layers": ann["num_layers"]},
+          "fold_batchnorm_rel_err_f32": fold_rel, "int8": int8,
+          "cli_test": scored, "tolerance": {
+              "artifact": "valid masks and classes equal, boxes within "
+                          "1e-4 of their size (at least 1 px), scores "
+                          "within 1e-4",
+              "fold_batchnorm": "heads within 1e-5 of their max, float32",
+              "int8": "every int32 accumulator equal to the float64 "
+                      "plain version's",
+              "cli_test": "artifact val_mAP within 1e-6 of --ckpt's; "
+                          "each batch's detections fed to the host mAP as "
+                          "the artifact check above, some valid"},
+          "checks": checks, "launches": launches,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    if not all(checks.values()):
+        raise AssertionError(f"the export phase failed its checks: "
+                             f"{ {k: v for k, v in checks.items() if not v} }")
+    del model, serve
+    torch.cuda.empty_cache()
+    return launches, artifacts
 
 
 def main() -> int:
@@ -3486,6 +3963,11 @@ def main() -> int:
             run = lambda: greedy_suppress(boxes, valid, thr)  # noqa: E731
             t = timing[f"B{b}"] = {
                 "ms": cuda_ms(run, 200 if b == 8 else 100, warmup=10)}
+            # what a call from inside an exported program pays: the
+            # registered operator's dispatch around the same launch
+            t["op_ms"] = cuda_ms(
+                lambda: torch.ops.podtpu_torch.greedy_suppress(
+                    boxes, valid, thr), 200 if b == 8 else 100, warmup=10)
             t["device_ms"], t["device_ms_by"] = device_ms(run)
             t["mask_ms"], t["scan_ms"], halves = suppress_halves(boxes, valid,
                                                                  thr)
@@ -3577,6 +4059,11 @@ def main() -> int:
         # 18. the serving and train-step options on YOLOv3-416
         options_launches = options_phase(cfg, flat, dev, card, fit, images,
                                          tmp)
+        # 19. backbone pretraining through the fused stem
+        pretrain_launches, pretrain_stem = pretrain_phase(dev, card, tmp)
+        # 20. the export path: artifacts, NPU checks, int8, cli.test
+        export_launches, export_artifacts = export_phase(
+            cfg, flat, dev, card, fit, images, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for e in stem_entries:
@@ -3591,6 +4078,15 @@ def main() -> int:
         e["launches_yolov4_synth"] = synth_launches[e["name"]]
         e["launches_fit_ways"] = ways_launches[e["name"]]
         e["launches_options"] = options_launches[e["name"]]
+        e["launches_pretrain"] = pretrain_launches[e["name"]]
+        e["launches_export"] = export_launches[e["name"]]
+        for size, rec in pretrain_stem.items():
+            t = rec["timing"][e["name"][len("stem_"):]]
+            tag = f"{size}px_B{rec['batch']}"
+            e.update({f"ms_{tag}": t["ms"], f"plain_ms_{tag}": t["plain_ms"],
+                      f"bound_ms_{tag}": t["bound_ms"],
+                      f"max_abs_err_{tag}": rec["max_abs_err"][
+                          e["name"][len("stem_"):]]})
         t448 = stem448["timing"][e["name"][len("stem_"):]]
         e.update(ms_448=t448["ms"], plain_ms_448=t448["plain_ms"],
                  bound_ms_448=t448["bound_ms"],
@@ -3612,6 +4108,8 @@ def main() -> int:
         "device_ms": dev_ms,
         "ms_B64": b64_ms,
         "ms_B1": suppress_b1["ms"],
+        "op_ms": timing["B8"]["op_ms"],
+        "op_ms_B1": suppress_b1["op_ms"],
         "device_ms_B1": suppress_b1["device_ms"],
         "plain_ms_B1": suppress_b1["plain_ms"],
         "bound_ms_B1": suppress_b1["bound_ms"],
@@ -3628,6 +4126,10 @@ def main() -> int:
         "launches_yolov4_synth": synth_launches["greedy_suppress"],
         "launches_fit_ways": ways_launches["greedy_suppress"],
         "launches_options": options_launches["greedy_suppress"],
+        "launches_pretrain": pretrain_launches["greedy_suppress"],
+        "launches_export": export_launches["greedy_suppress"],
+        "ms_artifact_B8": export_artifacts["B8"]["ms_artifact_B8"],
+        "ms_in_process_B8": export_artifacts["B8"]["ms_in_process_B8"],
         **{f"{k}_retina": retina_suppress[k]
            for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
         "plain_ms": plain_ms,

@@ -2,17 +2,17 @@
 under the same name (``test.py`` -> ``python -m podtpu_torch.cli.test``).
 
 Each runs on ``cuda`` unless ``--device`` says otherwise (``--device cpu``
-in place of ``podtpu``'s ``--platform cpu``). Exported serving artifacts
-(``--artifact``) and int8 evaluation (``--quantize``) are not ported:
-asking for them raises, naming the ``ROADMAP.md`` item that ports them.
+in place of ``podtpu``'s ``--platform cpu``). ``--artifact`` runs an
+exported serving artifact (``export_model --with-postprocess``, a
+``.pt2`` program) in place of a checkpoint, on the device it was
+exported on (``export/runner.py``).
 """
 
 from __future__ import annotations
 
 import os
 
-ARTIFACT_UNPORTED = ("exported serving artifacts (--artifact) are not "
-                     "ported yet (ROADMAP.md queue 1, item 10: export)")
+import numpy as np
 
 
 def class_names(cfg: dict) -> list[str]:
@@ -38,11 +38,60 @@ def eval_trainer(cfg: dict, ckpt: str | None, device=None,
     return trainer
 
 
+class Detector:
+    """What the per-image CLIs run on one image: a checkpoint's eval step
+    on ``device``, or an exported serving artifact (``--artifact``; a
+    fixed-batch artifact gets the image tiled up to its batch, as
+    ``podtpu``'s scripts do)."""
+
+    def __init__(self, cfg: dict, ckpt: str | None, artifact: str | None,
+                 device=None):
+        self.pad_annot = -np.ones((1, cfg["max_annots"], 5), np.float32)
+        self.trainer, self.batch = None, None
+        if artifact:
+            if ckpt:
+                raise SystemExit("--artifact runs the exported graph as-is; "
+                                 "--ckpt applies to a checkpoint")
+            import torch
+
+            from podtpu_torch.export.program import read_meta
+            from podtpu_torch.export.runner import artifact_runner
+
+            try:
+                self.run_artifact, self.batch = artifact_runner(artifact)
+            except ValueError as e:
+                raise SystemExit(str(e))
+            self.device = torch.device(read_meta(artifact).get("device",
+                                                               "cpu"))
+        else:
+            self.trainer = eval_trainer(cfg, ckpt, device)
+            self.device = self.trainer.device
+
+    def __call__(self, img: np.ndarray) -> np.ndarray:
+        """img [1, H, W, 3] (uint8, or float in [0, 1]) -> the valid
+        detections [n, 6] (cx, cy, w, h, conf, class), score-sorted."""
+        if self.trainer is None:
+            from podtpu_torch.export.runner import prepare_input
+
+            x = prepare_input(img)
+            if self.batch and self.batch > 1:
+                x = np.tile(x, (self.batch, 1, 1, 1))
+            dets, valid = self.run_artifact(x)
+            return dets[0][valid[0]]
+        from podtpu_torch.train.trainer import put_batch
+
+        batch = put_batch({"img": img, "annot": self.pad_annot},
+                          self.device)
+        _, dets, valid = self.trainer.eval_step(self.trainer.state, batch)
+        return dets[0].cpu().numpy()[valid[0].cpu().numpy()]
+
+
 def add_common_args(ap, artifact_help: str):
     """``--cfg``, ``--ckpt``, ``--artifact`` and ``--device``."""
     ap.add_argument("--cfg", required=True, type=str)
     ap.add_argument("--ckpt", type=str, default=None)
     ap.add_argument("--artifact", type=str, default=None,
-                    help=artifact_help + " (not ported yet: raises)")
+                    help=artifact_help + " (a .pt2 from export_model "
+                    "--with-postprocess) instead of a checkpoint")
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default cuda; cpu for local runs)")

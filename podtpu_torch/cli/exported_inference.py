@@ -1,0 +1,67 @@
+"""Benchmark an exported artifact (the port's ``exported_inference.py``;
+onnx_inference.py:23-51 analog): load a ``.pt2`` program, run it on a
+seeded uniform input of its own shape, print the average latency and FPS.
+
+    python -m podtpu_torch.cli.exported_inference --model model.pt2 \\
+        [--iters 50]
+
+The artifact runs on the device it was exported on. On the card each
+call is timed with CUDA events after warm-up; on the CPU by the host
+clock. A symbolic-batch artifact (``--batch dyn``) is timed at batch 1.
+A ``.tflite`` path raises: the port has no TFLite converter.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+
+def bench(path: str, iters: int = 50, warmup: int = 3) -> dict:
+    """``{"ms", "fps", "batch", "device"}`` of the artifact at ``path``."""
+    from podtpu_torch.export.program import load_exported, read_meta
+    from podtpu_torch.export.runner import TFLITE_UNPORTED
+
+    if path.endswith((".tflite", ".savedmodel")):
+        raise NotImplementedError(TFLITE_UNPORTED)
+    meta = read_meta(path)
+    shape = [d if d is not None else 1 for d in meta["input_shape"]]
+    dev = torch.device(meta["device"])
+    print(f"input: {meta['dtype']}{meta['input_shape']} on {dev}")
+    run = load_exported(path)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, shape).astype(meta["dtype"])).to(dev)
+    for _ in range(warmup):
+        run(x)
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            run(x)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / iters
+    else:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run(x)
+        ms = 1000 * (time.perf_counter() - t0) / iters
+    fps = 1000 * shape[0] / ms
+    print(f"avg latency: {ms:.2f} ms  |  {fps:.1f} FPS")
+    return {"ms": ms, "fps": fps, "batch": shape[0], "device": str(dev)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", required=True, type=str)
+    ap.add_argument("--iters", type=int, default=50)
+    args = ap.parse_args(argv)
+    return bench(args.model, args.iters)
+
+
+if __name__ == "__main__":
+    main()

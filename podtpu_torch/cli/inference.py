@@ -5,10 +5,13 @@ opens cv2 windows.
 
     python -m podtpu_torch.cli.inference --cfg configs/yolov3_voc.yaml \\
         --ckpt ... --out /tmp/vis [--limit N] [--device cpu]
+    python -m podtpu_torch.cli.inference --cfg ... --artifact model.pt2
 
 The printed latency is what a caller waits for: from the image on the
-device to its detections on the host (the eval step, then ``.cpu()``,
-inside a device-synchronised :class:`~podtpu_torch.utils.profiling.Profile`).
+host to its detections on the host (the eval step or the artifact, then
+``.cpu()``, inside a device-synchronised
+:class:`~podtpu_torch.utils.profiling.Profile`). An artifact exported at
+batch B runs B tiled copies: its time is labelled as the batch's.
 """
 
 from __future__ import annotations
@@ -19,29 +22,25 @@ import os
 import cv2
 import numpy as np
 
-from podtpu_torch.cli import (
-    ARTIFACT_UNPORTED,
-    add_common_args,
-    class_names,
-    eval_trainer,
-)
+from podtpu_torch.cli import Detector, add_common_args, class_names
 from podtpu_torch.config import get_configs
 from podtpu_torch.data.dataset import build_datasets
 from podtpu_torch.data.loader import Loader
-from podtpu_torch.train.trainer import put_batch
 from podtpu_torch.utils.profiling import Profile
 from podtpu_torch.utils.viz import annots_to_boxes, draw_boxes
 
 
 def inference(cfg: dict, ckpt: str | None, out_dir: str | None,
               show: bool = False, limit: int | None = None,
-              device=None) -> list[float]:
+              device=None, artifact: str | None = None) -> list[float]:
     """Runs the first ``limit`` val images (all by default) one at a time;
     returns each image's latency in ms."""
     _, val_ds = build_datasets(cfg)
     loader = Loader(val_ds, batch_size=1, shuffle=False,
                     max_annots=cfg["max_annots"], workers=1)
-    trainer = eval_trainer(cfg, ckpt, device)
+    detect = Detector(cfg, ckpt, artifact, device)
+    unit = (f"ms/batch-{detect.batch}" if artifact and detect.batch
+            and detect.batch > 1 else "ms")
     names = class_names(cfg)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -51,13 +50,10 @@ def inference(cfg: dict, ckpt: str | None, out_dir: str | None,
     for idx, batch in enumerate(loader):
         if limit is not None and idx >= limit:
             break
-        batch.pop("n_valid", None)
-        dev_batch = put_batch(batch, trainer.device)
-        with Profile(device=trainer.device) as p:
-            _, dets, valid = trainer.eval_step(trainer.state, dev_batch)
-            dets = dets[0].cpu().numpy()[valid[0].cpu().numpy()]
+        with Profile(device=detect.device) as p:
+            dets = detect(batch["img"])
         latencies.append(p.dt * 1000)
-        print(f"[{idx}] inference: {latencies[-1]:.2f} ms, "
+        print(f"[{idx}] inference: {latencies[-1]:.2f} {unit}, "
               f"{len(dets)} boxes")
 
         raw = batch["img"][0]
@@ -89,10 +85,8 @@ def main(argv=None):
     ap.add_argument("--show", action="store_true")
     ap.add_argument("--limit", type=int, default=None)
     args = ap.parse_args(argv)
-    if args.artifact:
-        raise NotImplementedError(ARTIFACT_UNPORTED)
     return inference(get_configs(args.cfg), args.ckpt, args.out, args.show,
-                     args.limit, device=args.device)
+                     args.limit, device=args.device, artifact=args.artifact)
 
 
 if __name__ == "__main__":

@@ -5,6 +5,8 @@ external-calculator cross-validation path.
 
     python -m podtpu_torch.cli.make_pred_file --cfg ... --ckpt ... \\
         --out mAP/input/detection-results [--device cpu]
+    python -m podtpu_torch.cli.make_pred_file --cfg ... --artifact model.pt2 \\
+        --out mAP/input/detection-results
 """
 
 from __future__ import annotations
@@ -12,31 +14,23 @@ from __future__ import annotations
 import argparse
 import os
 
-from podtpu_torch.cli import (
-    ARTIFACT_UNPORTED,
-    add_common_args,
-    class_names,
-    eval_trainer,
-)
+from podtpu_torch.cli import Detector, add_common_args, class_names
 from podtpu_torch.config import get_configs
 from podtpu_torch.data.dataset import build_datasets
 from podtpu_torch.data.loader import Loader
-from podtpu_torch.train.trainer import put_batch
 
 
-def make_pred_files(cfg: dict, ckpt: str | None, out_dir: str, device=None):
+def make_pred_files(cfg: dict, ckpt: str | None, out_dir: str, device=None,
+                    artifact: str | None = None):
     _, val_ds = build_datasets(cfg)
     loader = Loader(val_ds, batch_size=1, shuffle=False,
                     max_annots=cfg["max_annots"], workers=1)
-    trainer = eval_trainer(cfg, ckpt, device)
+    detect = Detector(cfg, ckpt, artifact, device)
     names = class_names(cfg)
     os.makedirs(out_dir, exist_ok=True)
 
     for idx, batch in enumerate(loader):
-        batch.pop("n_valid", None)
-        _, dets, valid = trainer.eval_step(trainer.state,
-                                           put_batch(batch, trainer.device))
-        dets = dets[0].cpu().numpy()[valid[0].cpu().numpy()]
+        dets = detect(batch["img"])
         img_path = val_ds.imgs[idx]
         stem = os.path.splitext(os.path.basename(img_path))[0]
         lines = []
@@ -54,10 +48,8 @@ def main(argv=None):
     add_common_args(ap, "emit predictions from an exported serving artifact")
     ap.add_argument("--out", type=str, required=True)
     args = ap.parse_args(argv)
-    if args.artifact:
-        raise NotImplementedError(ARTIFACT_UNPORTED)
     make_pred_files(get_configs(args.cfg), args.ckpt, args.out,
-                    device=args.device)
+                    device=args.device, artifact=args.artifact)
 
 
 if __name__ == "__main__":

@@ -15,25 +15,18 @@ import time
 import cv2
 import numpy as np
 
-from podtpu_torch.cli import (
-    ARTIFACT_UNPORTED,
-    add_common_args,
-    class_names,
-    eval_trainer,
-)
+from podtpu_torch.cli import Detector, add_common_args, class_names
 from podtpu_torch.config import get_configs
-from podtpu_torch.train.trainer import put_batch
 from podtpu_torch.utils.viz import draw_boxes
 
 
 def run(cfg: dict, ckpt: str | None, input_path: str, output_path: str,
-        device=None) -> dict:
+        device=None, artifact: str | None = None) -> dict:
     """Returns ``{"frames", "seconds", "fps"}``. Raises when the input
     cannot be read or the writer cannot be opened."""
-    trainer = eval_trainer(cfg, ckpt, device)
+    detect = Detector(cfg, ckpt, artifact, device)
     names = class_names(cfg)
     size = cfg["input_size"]
-    pad_annot = -np.ones((1, cfg["max_annots"], 5), np.float32)
     with contextlib.ExitStack() as stack:
         cap = cv2.VideoCapture(input_path)
         stack.callback(cap.release)
@@ -60,10 +53,7 @@ def run(cfg: dict, ckpt: str | None, input_path: str, output_path: str,
                              interpolation=cv2.INTER_LINEAR)
             inp = cv2.cvtColor(inp, cv2.COLOR_BGR2RGB).astype(
                 np.float32) / 255.0
-            batch = {"img": inp[None], "annot": pad_annot}
-            _, dets, valid = trainer.eval_step(
-                trainer.state, put_batch(batch, trainer.device))
-            dets = dets[0].cpu().numpy()[valid[0].cpu().numpy()].copy()
+            dets = detect(inp[None]).copy()
             if len(dets):
                 dets[:, [0, 2]] *= w0 / size
                 dets[:, [1, 3]] *= h0 / size
@@ -80,10 +70,8 @@ def main(argv=None):
     ap.add_argument("--input", required=True, type=str)
     ap.add_argument("--output", required=True, type=str)
     args = ap.parse_args(argv)
-    if args.artifact:
-        raise NotImplementedError(ARTIFACT_UNPORTED)
     return run(get_configs(args.cfg), args.ckpt, args.input, args.output,
-               device=args.device)
+               device=args.device, artifact=args.artifact)
 
 
 if __name__ == "__main__":

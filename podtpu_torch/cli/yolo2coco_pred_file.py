@@ -21,9 +21,8 @@ import os
 import cv2
 import numpy as np
 
-from podtpu_torch.cli import ARTIFACT_UNPORTED, add_common_args, eval_trainer
+from podtpu_torch.cli import Detector, add_common_args
 from podtpu_torch.config import get_configs
-from podtpu_torch.train.trainer import put_batch
 
 
 def coco_record(image_id, det, sx: float, sy: float) -> dict:
@@ -85,16 +84,15 @@ def _score(coco: dict, ann_json: str, out_json: str, results: list,
 
 
 def run(cfg: dict, ckpt: str | None, ann_json: str, out_json: str,
-        device=None) -> dict:
+        device=None, artifact: str | None = None) -> dict:
     """Writes ``out_json`` and returns the scores (``_score``) with the
     number of detections written."""
     with open(ann_json, "r") as f:
         coco = json.load(f)
     images = coco["images"]
     img_dir = os.path.dirname(ann_json)
-    trainer = eval_trainer(cfg, ckpt, device)
+    detect = Detector(cfg, ckpt, artifact, device)
     size = cfg["input_size"]
-    pad_annot = -np.ones((1, cfg["max_annots"], 5), np.float32)
 
     results = []
     for info in images:
@@ -105,10 +103,7 @@ def run(cfg: dict, ckpt: str | None, ann_json: str, out_json: str,
         h0, w0 = img.shape[:2]
         inp = cv2.resize(img, (size, size), interpolation=cv2.INTER_LINEAR)
         inp = cv2.cvtColor(inp, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
-        batch = {"img": inp[None], "annot": pad_annot}
-        _, dets, valid = trainer.eval_step(trainer.state,
-                                           put_batch(batch, trainer.device))
-        dets = dets[0].cpu().numpy()[valid[0].cpu().numpy()]
+        dets = detect(inp[None])
         sx, sy = w0 / size, h0 / size
         for det in dets:
             results.append(coco_record(info["id"], det, sx, sy))
@@ -127,10 +122,8 @@ def main(argv=None):
                     help="COCO annotation json")
     ap.add_argument("--out", type=str, default="results.json")
     args = ap.parse_args(argv)
-    if args.artifact:
-        raise NotImplementedError(ARTIFACT_UNPORTED)
     return run(get_configs(args.cfg), args.ckpt, args.json, args.out,
-               device=args.device)
+               device=args.device, artifact=args.artifact)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""Synthetic detection dataset generator (the port's copy of
-``generate`` from ``podtpu/data/synthetic.py``; the same seed writes the
-same files).
+"""Synthetic dataset generators (the port's copies of ``generate`` and
+``generate_classification`` from ``podtpu/data/synthetic.py``; the same
+seed writes the same files).
 
 No VOC is needed: tests, the CPU smoke training run and ``chip_smoke.py``
 use a generated dataset in the exact on-disk format the framework (and the
@@ -85,6 +85,38 @@ def generate(
         "names": names_path,
         "num_classes": num_classes,
     }
+
+
+def generate_classification(
+    out_dir: str,
+    n_per_class: int = 200,
+    size: int = 64,
+    num_classes: int = 20,
+    seed: int = 0,
+) -> list[str]:
+    """Write a tiny-imagenet-style imagefolder classification set for
+    ``cli/pretrain_darknet.py``: per-class subdirectories
+    (``classNN``) of JPEGs, each one dominant rectangle of
+    ``PALETTE[cls]`` on the detection set's noisy background, so the
+    pretrained backbone's colour and edge features carry over to the
+    detection fine-tune. Returns the class directory names."""
+    num_classes = min(num_classes, len(PALETTE))
+    rng = np.random.default_rng(seed)
+    classes = []
+    for cls in range(num_classes):
+        cdir = os.path.join(out_dir, f"class{cls:02d}")
+        os.makedirs(cdir, exist_ok=True)
+        classes.append(f"class{cls:02d}")
+        for i in range(n_per_class):
+            img = rng.integers(90, 150, (size, size, 3)).astype(np.uint8)
+            img = cv2.GaussianBlur(img, (5, 5), 0)
+            w = int(rng.integers(size // 6, size // 2))
+            h = int(rng.integers(size // 6, size // 2))
+            x1 = int(rng.integers(0, size - w))
+            y1 = int(rng.integers(0, size - h))
+            cv2.rectangle(img, (x1, y1), (x1 + w, y1 + h), PALETTE[cls], -1)
+            cv2.imwrite(os.path.join(cdir, f"{i:05d}.jpg"), img)
+    return classes
 
 
 def main():

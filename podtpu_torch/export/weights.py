@@ -137,13 +137,22 @@ def state_dict_from_flat(model: torch.nn.Module,
     return out
 
 
-def flat_from_state_dict(model: torch.nn.Module) -> dict[str, np.ndarray]:
-    """The model's weights in ``podtpu``'s flat ``.npz`` layout."""
-    convs, out = conv_paths(model), {}
-    for name, t in model.state_dict().items():
+def flat_from_tensors(state_dict: dict[str, torch.Tensor],
+                      convs: frozenset[str] = frozenset()
+                      ) -> dict[str, np.ndarray]:
+    """A port ``state_dict`` in ``podtpu``'s flat ``.npz`` layout;
+    ``convs``: the model's :func:`conv_paths`, for the keys of a bare
+    conv."""
+    out = {}
+    for name, t in state_dict.items():
         key, layout = _leaf(name, convs)
         out[key] = _to_numpy(layout, t)
     return out
+
+
+def flat_from_state_dict(model: torch.nn.Module) -> dict[str, np.ndarray]:
+    """The model's weights in ``podtpu``'s flat ``.npz`` layout."""
+    return flat_from_tensors(model.state_dict(), conv_paths(model))
 
 
 def load_flat_weights(model: torch.nn.Module, flat: dict[str, np.ndarray],

@@ -1,4 +1,7 @@
-"""Losses (``podtpu/losses``): the active loss of each ported family."""
+"""Losses (``podtpu/losses``): the active loss of each family, which
+``build_loss`` wires, and the reference's inactive variants
+(``yolov2_loss``, ``yolov3_loss``, ``yolov3_loss_v3``), exported as
+``podtpu`` exports them."""
 
 from __future__ import annotations
 
@@ -8,8 +11,12 @@ import torch
 
 from podtpu_torch.losses.focal import focal_loss  # noqa: F401
 from podtpu_torch.losses.yolov1 import yolov1_loss
-from podtpu_torch.losses.yolov2 import yolov2_loss_v2
-from podtpu_torch.losses.yolov3 import yolov3_loss_v2
+from podtpu_torch.losses.yolov2 import yolov2_loss, yolov2_loss_v2  # noqa: F401
+from podtpu_torch.losses.yolov3 import (  # noqa: F401
+    yolov3_loss,
+    yolov3_loss_v2,
+    yolov3_loss_v3,
+)
 
 
 def build_loss(cfg: dict) -> Callable:

@@ -1,7 +1,9 @@
 """Darknet-19 backbone (``podtpu/models/darknet.py``).
 
 Six stages (stem + layer1..5) built from ``(out_ch, k)`` / ``"M"`` config
-lists; ``Darknet19`` returns the features at ``out_indices``. In train mode
+lists; ``Darknet19`` returns the features at ``out_indices``, and
+``Darknet19Classifier`` adds the dropout -> conv1x1 -> global-mean head of
+backbone pretraining (``cli/pretrain_darknet.py``). In train mode
 stage0 and layer1's leading pool run as the fused stem
 (``models/stem.py``) when :func:`stem_fusable` holds and the stem block is
 not under QAT (the fused op has no fake-quant).
@@ -24,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from podtpu_torch.models.layers import (
     ConvBnAct,
+    SeededDropout,
     max_pool_2x2,
     recompute_context,
 )
@@ -84,8 +87,9 @@ class Darknet19(nn.Module):
             in_ch = STAGE_CHANNELS[i]
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        stem = self.stage0.conv0
         fuse = (stem_fusable(x, self.training, self.out_indices)
-                and not self.stage0.conv0.qat)
+                and not stem.qat and not stem.quantized)
         if fuse:
             x = fused_stem_pool(self.stage0.conv0, x)
         remat = self.remat and self.training and torch.is_grad_enabled()
@@ -106,3 +110,35 @@ class Darknet19(nn.Module):
 def _recompute_contexts():
     """``checkpoint``'s (forward, recompute) contexts."""
     return nullcontext(), recompute_context()
+
+
+class Darknet19Classifier(nn.Module):
+    """Classification variant for backbone pretraining: ``Darknet19``'s c5,
+    dropout 0.5 (train mode), ``classifier`` = ConvBnAct(num_classes, 1)
+    with its ReLU, then the float32 mean over the map. Takes an NHWC batch
+    and returns float32 logits [B, num_classes].
+
+    The ``backbone`` scope is the detectors' own, so the weights it saves
+    load into any Darknet-19 detector through cfg ``backbone_pretrained``.
+    With ``qat`` the backbone's blocks fake-quantize in train mode (the
+    fused stem is then off) and the classifier does not, as in
+    ``podtpu``."""
+
+    def __init__(self, num_classes: int = 1000, in_channels: int = 3,
+                 dtype: torch.dtype = torch.float32, qat: bool = False,
+                 dropout_rate: float = 0.5):
+        super().__init__()
+        self.backbone = Darknet19(out_indices=(5,), in_channels=in_channels,
+                                  dtype=dtype)
+        for m in self.backbone.modules():
+            if isinstance(m, ConvBnAct):
+                m.qat = qat
+        self.dropout = SeededDropout(dropout_rate)
+        self.classifier = ConvBnAct(STAGE_CHANNELS[-1], num_classes, 1,
+                                    dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # NHWC -> NCHW view with channels_last strides
+        x = self.backbone(x.permute(0, 3, 1, 2))[0]
+        x = self.classifier(self.dropout(x))
+        return x.float().mean(dim=(2, 3))

@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from podtpu_torch.ops import int8_conv
+
 REMAT_POLICIES = ("conv_out", "no_post_act")
 
 # per thread: the remat registry of the forward in progress, and whether a
@@ -237,7 +239,18 @@ class ConvBnAct(nn.Module):
 
     ``qat`` (cfg ``qat``, set by the factory): the train-mode forward
     fake-quantizes the input per tensor and the kernel per output channel
-    (:func:`fake_quant`) before the conv; eval mode is untouched."""
+    (:func:`fake_quant`) before the conv; eval mode is untouched.
+
+    Serving-time int8 (``export/quantize.py``): a block given quant state
+    (:meth:`set_quant`: ``w_int8`` OIHW int8, ``w_scale`` [O] and
+    ``x_scale`` [] float32, registered as buffers only then, so a float
+    model's ``state_dict`` is unchanged) quantizes its input,
+    ``clip(round(x / x_scale), -127, 127)`` (half to even), convolves int8
+    x int8 into int32 (``ops/int8_conv.py``), and dequantizes by
+    ``x_scale * w_scale`` into the compute dtype before the BN and the
+    activation."""
+
+    QUANT_BUFFERS = ("w_int8", "w_scale", "x_scale")
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
                  dtype: torch.dtype = torch.float32, strides: int = 1,
@@ -250,17 +263,52 @@ class ConvBnAct(nn.Module):
                               padding=(kernel_size - 1) // 2, bias=False)
         self.bn = BatchNormMixed(features, dtype=dtype)
 
+    @property
+    def quantized(self) -> bool:
+        return "w_int8" in self._buffers
+
+    def set_quant(self, w_int8: torch.Tensor, w_scale: torch.Tensor,
+                  x_scale: torch.Tensor):
+        """Install the int8 serving state on the block's device."""
+        dev = self.conv.weight.device
+        if tuple(w_int8.shape) != tuple(self.conv.weight.shape):
+            raise ValueError(f"w_int8 {tuple(w_int8.shape)} does not fit "
+                             f"the kernel {tuple(self.conv.weight.shape)}")
+        self.register_buffer("w_int8", w_int8.to(dev, torch.int8))
+        self.register_buffer("w_scale", w_scale.to(dev, torch.float32))
+        self.register_buffer("x_scale", x_scale.to(dev, torch.float32))
+
+    def clear_quant(self):
+        for name in self.QUANT_BUFFERS:
+            self._buffers.pop(name, None)
+
+    def quantize_input(self, x: torch.Tensor) -> torch.Tensor:
+        """``clip(round(x / x_scale), -127, 127)`` as int8 (the division by
+        the 0-dim ``x_scale`` is a true division on the card too)."""
+        return torch.clamp(torch.round(x.float() / self.x_scale), -127,
+                           127).to(torch.int8)
+
+    def _int8_conv(self, x: torch.Tensor) -> torch.Tensor:
+        acc = int8_conv.int8_conv2d(self.quantize_input(x), self.w_int8,
+                                    self.conv.stride[0],
+                                    self.conv.padding[0])
+        scale = (self.x_scale * self.w_scale)[:, None, None]
+        return (acc.float() * scale).to(self.dtype)
+
     def _post(self, z: torch.Tensor) -> torch.Tensor:
         if self.act is not None:
             z = self.act(z)
         return z.to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.conv.weight
-        if self.qat and self.training:
-            x, w = fake_quant(x), fake_quant(w, dims=(1, 2, 3))
-        x = F.conv2d(x.to(self.dtype), w.to(self.dtype),
-                     stride=self.conv.stride, padding=self.conv.padding)
+        if self.quantized:
+            x = self._int8_conv(x)
+        else:
+            w = self.conv.weight
+            if self.qat and self.training:
+                x, w = fake_quant(x), fake_quant(w, dims=(1, 2, 3))
+            x = F.conv2d(x.to(self.dtype), w.to(self.dtype),
+                         stride=self.conv.stride, padding=self.conv.padding)
         z = self.bn(x)
         remat = getattr(_local, "remat", None) if self.training else None
         if remat is None:

@@ -24,6 +24,7 @@ from torch import nn
 from podtpu_torch.models.layers import (
     ConvBnAct,
     HeadConv,
+    SeededDropout,
     leaky01,
     mish,
     upsample_nearest_2x,
@@ -97,6 +98,31 @@ class CSPDarknet53(nn.Module):
         c4 = self.stage4(c3)
         return c3, c4, self.stage5(c4)
 
+
+
+class CSPDarknet53Classifier(nn.Module):
+    """Classification variant for backbone pretraining: ``CSPDarknet53``'s
+    c5, dropout 0.5 (train mode), ``classifier`` = ConvBnAct(num_classes,
+    1) with its ReLU, then the float32 mean over the map; NHWC in, float32
+    logits [B, num_classes] out. Shares the ``backbone`` scope with
+    ``YoloV4``, so its weights load through cfg ``backbone_pretrained``.
+    Its stem is a Mish ``ConvBnAct``: it never reaches the fused stem."""
+
+    def __init__(self, num_classes: int = 1000, in_channels: int = 3,
+                 dtype: torch.dtype = torch.float32, qat: bool = False,
+                 dropout_rate: float = 0.5):
+        super().__init__()
+        self.backbone = CSPDarknet53(in_channels=in_channels, dtype=dtype)
+        for m in self.backbone.modules():
+            if isinstance(m, ConvBnAct):
+                m.qat = qat
+        self.dropout = SeededDropout(dropout_rate)
+        self.classifier = ConvBnAct(1024, num_classes, 1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c5 = self.backbone(x.permute(0, 3, 1, 2))[2]
+        x = self.classifier(self.dropout(c5))
+        return x.float().mean(dim=(2, 3))
 
 class _ConvTrioLeaky(nn.Module):
     """1x1 squeeze -> 3x3 expand -> 1x1 squeeze (leaky), SPP's sandwich."""

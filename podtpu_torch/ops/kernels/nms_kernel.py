@@ -6,9 +6,13 @@ bitmask of every IoU test over the whole card (``iou_mask_kernel``), then
 one warp per image scanning it in index order (``scan_kernel``); its source
 says what bounds them and how the design answers that.
 
-* :func:`greedy_suppress` — the entry point of the NMS path. A CUDA tensor
-  goes to the kernels (or the call raises); a CPU tensor goes to
-  :func:`greedy_suppress_reference`.
+* :func:`greedy_suppress` — the entry point of the NMS path. A CUDA
+  tensor goes to the kernels (or the call raises); a CPU tensor goes to
+  :func:`greedy_suppress_reference`. Inside a trace (``torch.export``) it
+  goes through the registered operator
+  ``torch.ops.podtpu_torch.greedy_suppress`` (:func:`suppress_op`), which
+  the graph keeps as one node; run in process it skips the operator's
+  dispatch, host time on every serving call.
 * :func:`greedy_suppress_cuda` — both kernels, one C call. Counts its
   launches in ``greedy_suppress.launches``, one a call.
 * :func:`greedy_suppress_reference` — the plain PyTorch version: the dense
@@ -121,9 +125,33 @@ def greedy_suppress_cuda(boxes: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
+@torch.library.custom_op("podtpu_torch::greedy_suppress", mutates_args=())
+def suppress_op(boxes: torch.Tensor, valid: torch.Tensor,
+                iou_threshold: float) -> torch.Tensor:
+    """The suppression as one registered operator, so that a
+    ``torch.export`` graph keeps it as a single node and an exported
+    program runs the kernel. Inside it the device is the switch: the
+    kernels on a CUDA tensor (or the call raises), the plain version on a
+    CPU tensor."""
+    return _suppress(boxes, valid, iou_threshold)
+
+
+def _suppress(boxes, valid, iou_threshold):
+    if boxes.device.type == "cpu":
+        return greedy_suppress_reference(boxes, valid, iou_threshold)
+    return greedy_suppress_cuda(boxes, valid, iou_threshold)
+
+
+@suppress_op.register_fake
+def _suppress_shape(boxes, valid, iou_threshold):
+    return torch.empty_like(valid)
+
+
 def greedy_suppress(boxes: torch.Tensor, valid: torch.Tensor,
                     iou_threshold: float) -> torch.Tensor:
-    """Batched greedy suppression of score-sorted, class-offset xyxy boxes.
+    """Batched greedy suppression of score-sorted, class-offset xyxy boxes;
+    while traced, through the registered operator ``torch.ops.podtpu_torch
+    .greedy_suppress`` (:func:`suppress_op`).
 
     Args:
       boxes: [B, K, 4] float32 contiguous.
@@ -131,9 +159,11 @@ def greedy_suppress(boxes: torch.Tensor, valid: torch.Tensor,
 
     Returns bool [B, K] keep mask.
     """
-    if boxes.device.type == "cpu":
-        return greedy_suppress_reference(boxes, valid, iou_threshold)
-    return greedy_suppress_cuda(boxes, valid, iou_threshold)
+    _check(boxes, valid)
+    if torch.compiler.is_compiling():
+        return torch.ops.podtpu_torch.greedy_suppress(boxes, valid,
+                                                      float(iou_threshold))
+    return _suppress(boxes, valid, iou_threshold)
 
 
 greedy_suppress.launches = 0

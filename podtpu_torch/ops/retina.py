@@ -70,8 +70,12 @@ _ANCHORS: dict = {}  # (device, input size, strides) -> all_anchors there
 def anchors_on(device: torch.device, input_size: int,
                strides: Sequence[int] = STRIDES) -> torch.Tensor:
     """:func:`all_anchors` on ``device``, made once per (device, input size,
-    strides) and shared by the loss and the decoder."""
+    strides) and shared by the loss and the decoder. A trace
+    (``torch.export``) neither reads nor fills the cache, so no traced
+    tensor outlives it."""
     key = (torch.device(device), int(input_size), tuple(strides))
+    if torch.compiler.is_compiling():
+        return all_anchors(input_size, strides).to(key[0])
     if key not in _ANCHORS:
         _ANCHORS[key] = all_anchors(input_size, strides).to(key[0])
     return _ANCHORS[key]

@@ -5,7 +5,9 @@
 * ``multi_step`` — torch MultiStepLR;
 * ``cosine_annealing_warm_restarts`` — torch CosineAnnealingWarmRestarts;
 * ``cosine_annealing_warm_up_restarts`` — linear warm-up to ``eta_max``,
-  cosine back to the base, cycle length x ``T_mult``, amplitude x ``gamma``.
+  cosine back to the base, cycle length x ``T_mult``, amplitude x ``gamma``;
+* ``cosine_decay_schedule`` — optax's, ``lr * 0.5 * (1 + cos(pi * t / T))``
+  held at 0 past T (backbone pretraining, ``cli/pretrain_darknet.py``).
 
 The step is the count of optimizer updates done before the one the lr is
 for (optax's ``count``): update k uses ``schedule(k)``, so ``yolo_lr``'s
@@ -88,6 +90,26 @@ def cosine_annealing_warm_up_restarts(
             return float(_F((eta - base_lr) * t_cur / max(T_up, 1) + base_lr))
         return float(_F(base_lr + (eta - base_lr) * (
             1 + math.cos(math.pi * (t_cur - T_up) / (t_i - T_up))) / 2))
+
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Schedule:
+    """``optax.cosine_decay_schedule`` (exponent 1): ``init_value *
+    ((1 - alpha) * 0.5 * (1 + cos(pi * min(t, T) / T)) + alpha)``, in
+    float32 as optax computes it; the cosine of the float32 angle is
+    rounded once from float64 (XLA's float32 cosine differs from it by one
+    ulp on a few angles in a thousand)."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine_decay_schedule needs positive "
+                         f"decay_steps, got {decay_steps}")
+
+    def schedule(step: int) -> float:
+        count = _F(min(float(step), float(decay_steps)))
+        cos = _F(math.cos(float(_F(np.pi) * count / _F(decay_steps))))
+        decayed = _F(1.0 - alpha) * (_F(0.5) * (_F(1.0) + cos)) + _F(alpha)
+        return float(_F(init_value) * decayed)
 
     return schedule
 

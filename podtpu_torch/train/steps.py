@@ -211,9 +211,11 @@ def make_candidates_fn(cfg: dict, apply_fn: Callable,
     return candidates
 
 
-def make_serve_fn(cfg: dict, apply_fn: Callable,
-                  with_preds: bool = False) -> Callable:
-    """The deployment graph: image batch -> (dets, valid).
+def make_serving_graph(cfg: dict, apply_fn: Callable,
+                       with_preds: bool = False) -> Callable:
+    """The deployment graph: image batch -> (dets, valid), with no grad
+    mode of its own (what ``export/program.py`` traces; no host read of a
+    tensor, so it exports whole).
 
     ``apply_fn(x) -> raw preds`` is the frozen-weights forward; the
     candidates (with cfg ``tta`` those of every branch,
@@ -223,7 +225,6 @@ def make_serve_fn(cfg: dict, apply_fn: Callable,
     decoder, nms = _decoder_and_nms(cfg)
     candidates = make_candidates_fn(cfg, apply_fn, decoder)
 
-    @torch.inference_mode()
     def serve(x):
         preds, boxes = candidates(x)
         dets, valid = nms(boxes)
@@ -234,6 +235,14 @@ def make_serve_fn(cfg: dict, apply_fn: Callable,
     return serve
 
 
+def make_serve_fn(cfg: dict, apply_fn: Callable,
+                  with_preds: bool = False) -> Callable:
+    """:func:`make_serving_graph` under ``torch.inference_mode()``: what
+    ``Engine`` and the eval step call."""
+    return torch.inference_mode()(
+        make_serving_graph(cfg, apply_fn, with_preds))
+
+
 def make_eval_step(cfg: dict, extra_variables: dict | None = None
                    ) -> Callable:
     """``(state, batch) -> (loss, dets [B, max_det, 6], valid [B, max_det])``
@@ -242,11 +251,21 @@ def make_eval_step(cfg: dict, extra_variables: dict | None = None
     ``torch.inference_mode()``, the serving postprocess, and the loss on
     the same raw preds. Detections are input-pixel cxcywh + conf + class,
     score-sorted. The state is left as it was, its train/eval mode
-    included."""
-    if extra_variables:
-        raise NotImplementedError("extra_variables (int8 quantized eval) is "
-                                  "not ported yet (ROADMAP.md queue 1, item "
-                                  "10: export)")
+    included.
+
+    ``extra_variables``: ``{"quant": ...}`` from
+    ``export/quantize.py::build_quant_variables``; its int8 blocks are
+    installed for each call and removed after it (``quant_scope``), as
+    ``podtpu`` merges the collection into the apply's variables."""
+    from podtpu_torch.export.quantize import quant_scope
+
+    extra = dict(extra_variables or {})
+    unknown = sorted(set(extra) - {"quant"})
+    if unknown:
+        raise ValueError(f"unknown extra variable collections {unknown} "
+                         "(expected 'quant')")
+    quant = extra.get("quant")
+    on_device: dict = {}  # device -> quant's tensors there, copied once
     loss_fn = build_loss(cfg)
     current: list = [None]  # the model of the call in progress
     serve = make_serve_fn(cfg, lambda x: current[0](x), with_preds=True)
@@ -257,7 +276,12 @@ def make_eval_step(cfg: dict, extra_variables: dict | None = None
         model.eval()
         current[0] = model
         try:
-            preds, dets, valid = serve(_as_input(batch["img"]))
+            dev = batch["img"].device
+            if quant and dev not in on_device:
+                on_device[dev] = {p: {k: v.to(dev) for k, v in q.items()}
+                                  for p, q in quant.items()}
+            with quant_scope(model, on_device.get(dev)):
+                preds, dets, valid = serve(_as_input(batch["img"]))
             with torch.inference_mode():
                 loss = loss_fn(preds, batch["annot"])
         finally:

@@ -642,3 +642,52 @@ def test_rejected_step_leaves_the_card_state_bit_for_bit(cuda):
                for k, v in sd.items())
     assert all(torch.equal(a, s["momentum_buffer"]) for a, s in
                zip(mom, state.optimizer.state.values()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,o,k,s", [
+    (2, 3, 64, 32, 3, 1),      # the stem: depth 27 padded to 32
+    (1, 32, 16, 20, 3, 2),     # a stride-2 conv; 20 outputs padded to 24
+    (1, 1024, 2, 512, 1, 1),   # 1x1 over 1,024 channels: 4 rows padded
+    (2, 512, 13, 1024, 3, 1),  # a 3x3 over 512 channels at 13 x 13
+])
+def test_int8_conv_is_exact_on_the_card(cuda, b, c, h, o, k, s):
+    """The im2col + ``_int_mm`` route against the plain float64 version on
+    the same int8 operands: int32 accumulators equal, at the extremes
+    (+-127 everywhere) too."""
+    from podtpu_torch.ops.int8_conv import (
+        int8_conv2d,
+        int8_conv2d_reference,
+    )
+
+    g = torch.Generator().manual_seed(b * c + o)
+    x = torch.randint(-127, 128, (b, c, h, h), dtype=torch.int8, generator=g)
+    w = torch.randint(-127, 128, (o, c, k, k), dtype=torch.int8, generator=g)
+    for xx, ww in ((x, w), (torch.full_like(x, 127), torch.full_like(w, -127))):
+        got = int8_conv2d(xx.to(cuda), ww.to(cuda), s, (k - 1) // 2)
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), int8_conv2d_reference(xx, ww, s,
+                                                            (k - 1) // 2))
+
+
+@pytest.mark.cuda
+def test_exported_program_launches_the_suppression_kernel(cuda, tmp_path):
+    """A ``torch.export`` program holding the registered operator, saved
+    and loaded: one kernel launch a call, the plain version's keep mask."""
+    from podtpu_torch.export import program
+
+    rng = np.random.default_rng(3)
+    boxes, valid = _offset_boxes(rng, 4, 512)
+
+    class Suppress(torch.nn.Module):
+        def forward(self, b, v):
+            return torch.ops.podtpu_torch.greedy_suppress(b, v, 0.45)
+
+    ep = torch.export.export(Suppress(), (boxes.to(cuda), valid.to(cuda)))
+    torch.export.save(ep, str(tmp_path / "s.pt2"))
+    module = program.load_program(str(tmp_path / "s.pt2")).module()
+    before = greedy_suppress.launches
+    keep = module(boxes.to(cuda), valid.to(cuda))
+    assert greedy_suppress.launches == before + 1
+    assert torch.equal(keep.cpu(), greedy_suppress_reference(boxes, valid,
+                                                             0.45))

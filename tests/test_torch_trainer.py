@@ -483,9 +483,39 @@ def test_early_stopping_counts_validation_rounds(synth, tmp_path,
 
 
 def test_unported_eval_options_raise(synth, tmp_path):
+    """``make_eval_step(extra_variables={"quant": ...})`` (the int8 eval of
+    ``cli.test --quantize``, no longer refused): the quant state is in
+    place for the call only (the state's keys and mode come back), its
+    detections are those of the model with the state installed, and they
+    differ from the float model's; another collection raises."""
+    from podtpu_torch.export import quantize
+    from podtpu_torch.train.state import create_train_state
+    from podtpu_torch.train.trainer import put_batch
+
     cfg = _cfg(synth, tmp_path)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_eval_step(cfg, extra_variables={"quant": {}})
+    # seeded He-normal weights: torch's default init shrinks the heads to
+    # ~0, where int8 and float agree to the bit
+    state = create_train_state(cfg, "cpu",
+                               weights=podtpu_flat_weights(cfg, seed=2))
+    batch = next(iter(make_loaders(cfg)[1]))
+    batch.pop("n_valid", None)
+    batch = put_batch(batch, torch.device("cpu"))
+    qvars = quantize.build_quant_variables(
+        state.model, quantize.calibrate(state.model,
+                                        [batch["img"].float() / 255.0]))
+    keys = set(state.model.state_dict())
+    loss, dets, valid = make_eval_step(cfg, extra_variables=qvars)(state,
+                                                                   batch)
+    assert set(state.model.state_dict()) == keys and state.model.training
+    assert torch.isfinite(loss)
+    with quantize.quant_scope(state.model, qvars["quant"]):
+        want = make_eval_step(cfg)(state, batch)
+    assert torch.equal(loss, want[0]) and torch.equal(dets, want[1])
+    assert torch.equal(valid, want[2])
+    float_loss = make_eval_step(cfg)(state, batch)[0]
+    assert not torch.equal(loss, float_loss)
+    with pytest.raises(ValueError, match="quant"):
+        make_eval_step(cfg, extra_variables={"quant_stats": {}})
 
 
 def test_entry_points_default_to_cuda(synth, tmp_path, monkeypatch):
