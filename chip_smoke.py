@@ -198,6 +198,22 @@ raising on failure:
    1e-6, and each batch's detections handed to the host mAP held as the
    artifacts above).
 
+21. parallel: data parallelism with global BatchNorm through the fused
+   stem's kernels, FSDP, and the multi-process run (``parallel/``). Two
+   ranks share the card over gloo (CUDA tensors): YOLOv3-416 at full width
+   and depth, 16 images, 8 a rank, one float32 and one bf16 DP step and a
+   float32 FSDP step, each rank launching each stem kernel once a step,
+   held against one process's step on the 16 (bf16 by the loss, the
+   statistics and the update's norm, which a planted summed-gradient step
+   must fail); the fused stem op alone under the two ranks in both dtypes
+   against one process; rank 0 times the stem kernels at its 8 rows. Then a two-rank ``train.run --distributed``
+   under torchrun for one epoch of phase 9's files, whose gathered
+   ``validate`` must give each image the detections, and the val mAP, of
+   one process's ``validate`` of the same weights; then one rank under
+   nccl: the B=64 DP and FSDP steps beside the plain step (ms a step, peak
+   GB). Two ranks on one card check correctness; they are no scaling
+   number. Every process it starts has a hard timeout.
+
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the rest of the repository beside it, the script exits non-zero and prints
@@ -3863,6 +3879,614 @@ def export_phase(cfg, flat, dev, card, fit, images, tmp):
     return launches, artifacts
 
 
+# ---- phase 21: data parallelism, FSDP and the multi-process run -------------
+
+PARALLEL_B = 16  # the two-rank steps' global batch: 8 a rank
+PARALLEL_TIMEOUT_S = 300
+
+
+def parallel_cfg(dtype: str) -> dict:
+    """``configs/yolov3_voc.yaml`` as shipped (416 px, full width and depth)
+    in ``dtype`` at a constant lr (its ``yolo_lr`` burn-in gives step 0 an
+    lr of 0, which would update nothing)."""
+    from podtpu_torch.config import get_configs
+
+    cfg = get_configs(os.path.join(REPO, "configs", "yolov3_voc.yaml"))
+    return dict(cfg, compute_dtype=dtype, scheduler=None)
+
+
+def parallel_batch(cfg, b: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"img": rng.integers(0, 256, (b, 416, 416, 3), dtype=np.uint8),
+            "annot": synthetic_annotations(cfg, b, seed)}
+
+
+def _flat_digest(flat: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(flat):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(flat[k]).tobytes())
+    return h.hexdigest()
+
+
+def parallel_step(cfg, flat, host: dict, dev, fsdp: bool = False) -> dict:
+    """One train step from ``flat`` on this rank's rows of ``host`` (all of
+    it without a group): the loss, the updated flat weights, the stem's
+    launches."""
+    from podtpu_torch.export.weights import flat_from_state_dict
+    from podtpu_torch.parallel import mesh
+    from podtpu_torch.train.state import create_train_state
+    from podtpu_torch.train.steps import make_train_step
+
+    state = create_train_state(
+        cfg, dev, weights=flat,
+        fsdp_mesh=mesh.make_mesh("cuda") if fsdp else None)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in mesh.shard_batch(host).items()}
+    _zero_counts()
+    state, m = make_train_step(cfg)(state, batch)
+    torch.cuda.synchronize()
+    out = {"loss": float(m["loss"]), "launches": _counts(),
+           "flat": flat_from_state_dict(state.model),
+           "sharded_leaves": mesh.sharded_leaves(state.model)}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _update_check(got: dict, want: dict, before: dict, rel: float,
+                  cos: float) -> dict:
+    """The update ``got - before`` against ``want - before``: its distance
+    over the norm (<= ``rel``), the cosine (>= ``cos``), and as a reading
+    the elements outside rtol 2e-4 / atol 1e-6 (podtpu's DP check)."""
+    keys = sorted(k for k in want if k.startswith("params"))
+    ug = np.concatenate([(got[k] - before[k]).ravel() for k in keys])
+    uw = np.concatenate([(want[k] - before[k]).ravel() for k in keys])
+    nw = float(np.linalg.norm(uw))
+    rec = {"update_rel_dist": float(np.linalg.norm(ug - uw)) / nw,
+           "update_cosine": float(ug @ uw) / (float(np.linalg.norm(ug)) * nw),
+           "update_norm_ratio": float(np.linalg.norm(ug)) / nw,
+           "params_outside_rtol2e-4_atol1e-6": int(sum(
+               (~np.isclose(got[k], want[k], rtol=2e-4, atol=1e-6)).sum()
+               for k in keys)),
+           "params": int(sum(want[k].size for k in keys))}
+    stats = [k for k in want if k.startswith("batch_stats")]
+    rec["stats_max_err_of_scale"] = max(
+        float(np.abs(got[k] - want[k]).max()
+              / max(1.0, float(np.abs(want[k]).max()))) for k in stats)
+    rec["ok"] = (rec["update_rel_dist"] <= rel
+                 and rec["update_cosine"] >= cos)
+    return rec
+
+
+def parallel_stem_inputs(b: int, size: int, seed: int) -> dict:
+    """The fused stem op's inputs for its check under data parallelism:
+    OIHW He-normal weights, a BN affine, images whose brightness rises
+    from 0.1 to 1 over the global batch and a cotangent whose mean runs
+    from -1 to 1, so that each rank's half has sums far from the global
+    batch's (a rank that used its own in place of the all-reduced ones
+    would be off by a large part of the result)."""
+    r = np.random.default_rng(seed)
+    gain = np.linspace(0.1, 1.0, b, dtype=np.float32)[:, None, None, None]
+    shift = np.linspace(-1.0, 1.0, b, dtype=np.float32)[:, None, None, None]
+    return {
+        "w": r.normal(0.0, np.sqrt(2 / 27), (32, 3, 3, 3)).astype(np.float32),
+        "scale": r.uniform(0.5, 1.5, 32).astype(np.float32),
+        "bias": r.normal(0.0, 0.1, 32).astype(np.float32),
+        "rows": {"x": r.random((b, size, size, 3), dtype=np.float32) * gain,
+                 "cot": r.normal(0.0, 1.0, (b, 32, size // 2, size // 2))
+                 .astype(np.float32) + shift}}
+
+
+def parallel_stem_run(inp: dict, dtype, dev) -> dict:
+    """``models/stem.py::fused_stem_pool`` forward and backward on this
+    rank's rows of ``inp`` (all of them without a group): the output, this
+    rank's gradients (the train step's reduction adds them up) and the BN
+    running statistics, as float32 arrays."""
+    from podtpu_torch.models.layers import ConvBnAct
+    from podtpu_torch.models.stem import fused_stem_pool
+    from podtpu_torch.parallel import mesh
+
+    rows = mesh.shard_batch(inp["rows"])
+    block = ConvBnAct(3, 32, dtype=dtype).to(dev)
+    with torch.no_grad():
+        block.conv.weight.copy_(torch.from_numpy(inp["w"]))
+        block.bn.weight.copy_(torch.from_numpy(inp["scale"]))
+        block.bn.bias.copy_(torch.from_numpy(inp["bias"]))
+    x = torch.from_numpy(rows["x"]).to(dev).permute(0, 3, 1, 2)
+    out = fused_stem_pool(block, x)
+    (out.float() * torch.from_numpy(rows["cot"]).to(dev)).sum().backward()
+    got = {"out": out, "gw": block.conv.weight.grad,
+           "gscale": block.bn.weight.grad, "gbias": block.bn.bias.grad,
+           "mean": block.bn.running_mean, "var": block.bn.running_var}
+    return {k: v.detach().float().cpu().numpy() for k, v in got.items()}
+
+
+# the stem op under two ranks against one process, each as a share of the
+# one process's largest magnitude: the rows' outputs, the gradients added
+# over the ranks, each rank's running statistics. The passes see the same
+# pixels either way; the sums differ in order alone, which moves float32
+# by ~1e-7 and can flip a bf16 rounding of ``mul`` / ``add``, of an output
+# or of a ``d_pre`` (one bf16 ulp is 3.9e-3 of the value): bf16 is given
+# a few ulps. A rank that took its own sums, or returned the all-reduced
+# ones as its gradients (counted twice), is off by a large part of the
+# result.
+STEM_DP_TOL = {"float32": {"out": 1e-5, "grads": 1e-4, "stats": 1e-4},
+               "bfloat16": {"out": 1e-2, "grads": 1e-2, "stats": 1e-4}}
+
+
+def _stem_dp_check(ranks: list[dict], one: dict, tol: dict) -> dict:
+    def err(a, b):
+        return float(np.abs(a - b).max()
+                     / max(float(np.abs(b).max()), 1e-30))
+
+    rec = {"out": err(np.concatenate([r["out"] for r in ranks]), one["out"])}
+    for k in ("gw", "gscale", "gbias"):
+        rec[k] = err(sum(r[k] for r in ranks), one[k])
+    for k in ("mean", "var"):
+        rec[k] = max(err(r[k], one[k]) for r in ranks)
+    rec["ok"] = (rec["out"] <= tol["out"]
+                 and max(rec[k] for k in ("gw", "gscale", "gbias"))
+                 <= tol["grads"]
+                 and max(rec["mean"], rec["var"]) <= tol["stats"])
+    return rec
+
+
+def _summed_gradients(params):
+    """A planted fault for the bf16 step's check: the ranks' gradients
+    summed, not averaged."""
+    from podtpu_torch.parallel import mesh
+
+    for g in mesh.gradients_of(params):
+        torch.distributed.all_reduce(g)
+
+
+def parallel_rank_main(argv) -> int:
+    """``chip_smoke.py --parallel-rank R W STORE OUT``: one of two ranks
+    sharing the card over gloo (CUDA tensors): the float32 and bf16 DP
+    steps, the bf16 step again with its gradients summed over the ranks (a
+    planted fault its check must reject) and the float32 FSDP step on its
+    8 rows of the 16 images; the fused stem op alone on its rows in both
+    dtypes; rank 0 then times the stem kernels at its B=8 while rank 1
+    waits. Writes its record to ``OUT.json``, its stem op's results to
+    ``OUT.stem.npz`` (and rank 0 its weights to ``OUT.npz``)."""
+    from podtpu_torch.models.factory import build_model
+    from podtpu_torch.ops.kernels import stem_kernel as sk
+    from podtpu_torch.parallel import mesh
+    from podtpu_torch.train import steps
+
+    rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.join("gloo", torch.device("cuda", 0), rank, world,
+                    f"file://{store}", timeout_s=PARALLEL_TIMEOUT_S)
+    rec, weights, stem = {"rank": rank, "device": str(dev)}, {}, {}
+    average = steps.average_gradients
+    try:
+        for name, dtype, fsdp in (("f32", "float32", False),
+                                  ("bf16", "bfloat16", False),
+                                  ("bf16_summed", "bfloat16", False),
+                                  ("fsdp_f32", "float32", True)):
+            cfg = parallel_cfg(dtype)
+            flat = random_weights(build_model(cfg, "cpu"), SEED)
+            print(f"rank {rank}: {name} step", flush=True)
+            if name == "bf16_summed":
+                steps.average_gradients = _summed_gradients
+            try:
+                r = parallel_step(cfg, flat, parallel_batch(
+                    cfg, PARALLEL_B, SEED + 7), dev, fsdp)
+            finally:
+                steps.average_gradients = average
+            weights[name] = r.pop("flat")
+            r["digest"] = _flat_digest(weights[name])
+            rec[name] = r
+        inp = parallel_stem_inputs(PARALLEL_B, 416, SEED + 11)
+        for dtype in STEM_DP_TOL:
+            stem.update({f"{dtype}/{k}": v for k, v in parallel_stem_run(
+                inp, getattr(torch, dtype), dev).items()})
+        if rank == 0:
+            _, max_err, timing, _ = stem_timing(sk, dev, 416, SEED + 3,
+                                                b=PARALLEL_B // world)
+            rec["stem_B8"] = {"timing": timing, "max_abs_err": max_err}
+        mesh.barrier()
+    finally:
+        mesh.shutdown()
+    with open(out + ".json", "w") as f:
+        json.dump(rec, f)
+    np.savez(out + ".stem.npz", **stem)
+    if rank == 0:
+        np.savez(out + ".npz", **{f"{n}/{k}": v for n, w in weights.items()
+                                  for k, v in w.items()})
+    return 0
+
+
+def parallel_fit_rank_main(argv) -> int:
+    """``chip_smoke.py --parallel-fit-rank CFG OUT`` under torchrun: the
+    user's entry point, ``podtpu_torch.train.run`` with ``--distributed
+    --backend gloo``; records the rows every ``validate`` hands the mAP
+    (every rank's, gathered) and the kernels' launches."""
+    from podtpu_torch.metrics.map import MeanAveragePrecision
+    from podtpu_torch.train import run
+
+    cfg_path, out = argv
+    rows = []
+    update = MeanAveragePrecision.update_state
+
+    def recording(self, annot, dets, valid):
+        rows.append((np.asarray(annot), np.asarray(dets), np.asarray(valid)))
+        return update(self, annot, dets, valid)
+
+    MeanAveragePrecision.update_state = recording
+    _zero_counts()
+    trainer = run.main(["--cfg", cfg_path, "--distributed", "--backend",
+                        "gloo"])
+    rank = int(os.environ["RANK"])
+    with open(f"{out}.rank{rank}.json", "w") as f:
+        json.dump({"launches": _counts(), "step": trainer.state.step,
+                   "history": trainer.history}, f)
+    if rank == 0:
+        np.savez(f"{out}.rows.npz", **{
+            f"{i}/{k}": v for i, row in enumerate(rows)
+            for k, v in zip(("annot", "dets", "valid"), row)})
+    return 0
+
+
+def parallel_nccl_main(argv) -> int:
+    """``chip_smoke.py --parallel-nccl STORE OUT``: YOLOv3-416 bf16 B=64 as
+    shipped (constant lr): the plain step with no group, then one rank
+    under nccl: the DP step and the FSDP step; each from the same weights,
+    one step compared, then timed (host clock over 5 steps ending in a
+    synchronize) with its peak memory."""
+    from podtpu_torch.models.factory import build_model
+    from podtpu_torch.parallel import mesh
+    from podtpu_torch.train.state import create_train_state
+    from podtpu_torch.train.steps import make_train_step
+
+    store, out = argv
+    dev = torch.device("cuda", 0)
+    cfg = parallel_cfg("bfloat16")
+    flat = random_weights(build_model(cfg, "cpu"), SEED)
+    host = parallel_batch(cfg, 64, SEED + 9)
+    rec, weights = {}, {}
+    for name in ("plain", "dp", "fsdp"):
+        if name == "dp":
+            mesh.join("nccl", dev, 0, 1, f"file://{store}",
+                      timeout_s=PARALLEL_TIMEOUT_S)
+        r = parallel_step(cfg, flat, host, dev, fsdp=name == "fsdp")
+        weights[name] = r.pop("flat")
+        r["digest"] = _flat_digest(weights[name])
+        state = create_train_state(
+            cfg, dev, weights=flat,
+            fsdp_mesh=mesh.make_mesh("cuda") if name == "fsdp" else None)
+        step = make_train_step(cfg)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        for _ in range(2):
+            state, _m = step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            state, _m = step(state, batch)
+        torch.cuda.synchronize()
+        r["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 5
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec[name] = r
+        del state, step, batch
+        torch.cuda.empty_cache()
+    mesh.shutdown()
+    rec["dp_bit_equal_plain"] = rec["dp"]["digest"] == rec["plain"]["digest"]
+    rec["fsdp_vs_plain"] = _update_check(weights["fsdp"], weights["plain"],
+                                         flat, 0.05, 0.999)
+    rec["fsdp_loss_rel_err"] = abs(rec["fsdp"]["loss"] - rec["plain"][
+        "loss"]) / abs(rec["plain"]["loss"])
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _start_procs(cmds, tmp, name, env=None):
+    """Start ``cmds`` side by side, each in its own process group, with its
+    output in ``tmp/<name><i>.log``."""
+    procs = []
+    env = dict(env or os.environ, PYTHONUNBUFFERED="1")
+    for i, cmd in enumerate(cmds):
+        log = open(os.path.join(tmp, f"{name}{i}.log"), "w")
+        procs.append((subprocess.Popen(cmd, cwd=REPO, stdout=log, env=env,
+                                       stderr=subprocess.STDOUT,
+                                       start_new_session=True), log))
+    return procs
+
+
+def _finish_procs(procs, name) -> list[str]:
+    """Wait for ``procs`` with a hard timeout, kill every one left on a
+    failure or a timeout, and raise unless all exited 0; returns their
+    output."""
+    import signal
+
+    try:
+        for p, _ in procs:
+            p.wait(timeout=PARALLEL_TIMEOUT_S)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+            log.close()
+    outs = [open(log.name).read() for _, log in procs]
+    codes = [p.returncode for p, _ in procs]
+    if any(codes):
+        raise AssertionError(f"phase parallel: {name} failed {codes}:\n"
+                             + "\n".join(o[-3000:] for o in outs))
+    return outs
+
+
+def parallel_phase(dev, card, fit, tmp) -> dict:
+    """Phase 21. (a) Two ranks sharing the card over gloo: YOLOv3-416 at
+    full width and depth, 16 images, 8 a rank, one float32 and one bf16 DP
+    step against one process's step on the 16, each rank launching each
+    stem kernel once a step, a bf16 step with its gradients summed over the
+    ranks that the bf16 check must reject, and the fused stem op alone (its
+    output, gradients and statistics) in both dtypes; (c) the float32 FSDP
+    step of the same two
+    ranks against their DP step; then a two-rank ``train.run
+    --distributed`` of one epoch from phase 9's files (B=16), whose
+    ``validate`` (every rank's rows gathered) must give every image the
+    detections and the val mAP that one process's ``validate`` of the same
+    weights gives. (b) One rank under nccl: the B=64 DP and FSDP steps
+    beside the plain step, ms a step and peak GB. Two ranks on one card
+    check correctness; they are no scaling number. Returns the kernels'
+    launches and the stem's device ms at 8 a rank."""
+    from podtpu_torch.models.factory import build_model
+    from podtpu_torch.train.run import make_loaders
+    from podtpu_torch.train.trainer import Trainer, restore_weights
+
+    t_phase = time.perf_counter()
+    me = os.path.abspath(__file__)
+    py = sys.executable
+    checks, rec = {}, {"card": card}
+    # (a) + (c): the ranks, and meanwhile one process's steps on the 16
+    store = os.path.join(tmp, "parallel_store")
+    out = [os.path.join(tmp, f"parallel_rank{r}") for r in range(2)]
+    procs = _start_procs([[py, me, "--parallel-rank", str(r), "2", store,
+                           out[r]] for r in range(2)], tmp, "parallel_rank")
+    try:
+        # one process on the 16 images, and a witness of how far rounding
+        # alone moves its update (a reading): float32 the two halves of
+        # the batch swapped (the same sums in another order), bf16 every
+        # other pixel nudged by one bf16 ulp
+        one, witness, flats = {}, {}, {}
+        for name, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+            cfg = parallel_cfg(dtype)
+            flats[name] = random_weights(build_model(cfg, "cpu"), SEED)
+            host = parallel_batch(cfg, PARALLEL_B, SEED + 7)
+            one[name] = parallel_step(cfg, flats[name], host, dev)
+            if name == "f32":
+                half = PARALLEL_B // 2
+                moved = {k: np.concatenate([v[half:], v[:half]])
+                         for k, v in host.items()}
+            else:
+                img = host["img"].astype(np.float32) / np.float32(255.0)
+                nudge = np.random.default_rng(SEED).random(img.shape) < 0.5
+                moved = {"img": np.where(nudge, img * np.float32(1 + 2.0 ** -8),
+                                         img), "annot": host["annot"]}
+            witness[name] = parallel_step(cfg, flats[name], moved, dev)["flat"]
+        # the stem op alone on the 16 images
+        inp = parallel_stem_inputs(PARALLEL_B, 416, SEED + 11)
+        stem_one = {dtype: parallel_stem_run(inp, getattr(torch, dtype), dev)
+                    for dtype in STEM_DP_TOL}
+    finally:
+        _finish_procs(procs, "the two-rank steps")
+    ranks = [json.load(open(o + ".json")) for o in out]
+    with np.load(out[0] + ".npz") as f:
+        got = {n: {k[len(n) + 1:]: f[k] for k in f.files
+                   if k.startswith(n + "/")}
+               for n in ("f32", "bf16", "bf16_summed", "fsdp_f32")}
+    stem_ranks = []
+    for o in out:
+        with np.load(o + ".stem.npz") as f:
+            stem_ranks.append({k: f[k] for k in f.files})
+    # float32: the update within 5% of one process's norm and at cosine
+    # 0.999 (the CPU tests' bound). bf16: the update's direction is not
+    # checked, since one bf16 ulp on the input moves it by about its own
+    # norm (the witness); its norm is (a summed gradient doubles it), and
+    # the stem op under DP is checked alone below, where the comparison is
+    # well conditioned
+    tol = {"f32": {"loss": 1e-5, "stats": 1e-4},
+           "bf16": {"loss": 1e-2, "stats": 1e-2}}
+    norm_ratio = (0.8, 1.25)
+    steps = {}
+    for name in ("f32", "bf16"):
+        loss = float(np.mean([r[name]["loss"] for r in ranks]))
+        s = _update_check(got[name], one[name]["flat"], flats[name], 0.05,
+                          0.999)
+        s.update(loss_two_ranks=loss, loss_one_process=one[name]["loss"],
+                 loss_rel_err=abs(loss - one[name]["loss"])
+                 / abs(one[name]["loss"]),
+                 launches_by_rank=[r[name]["launches"] for r in ranks],
+                 launches_one_process=one[name]["launches"])
+        ok = s.pop("ok")
+        if name == "f32":
+            checks["f32_update"] = ok
+        checks[f"{name}_update_norm"] = (norm_ratio[0] <= s[
+            "update_norm_ratio"] <= norm_ratio[1])
+        checks[f"{name}_loss"] = s["loss_rel_err"] <= tol[name]["loss"]
+        checks[f"{name}_running_stats"] = (s["stats_max_err_of_scale"]
+                                           <= tol[name]["stats"])
+        wit = _update_check(witness[name], one[name]["flat"], flats[name],
+                            0.05, 0.999)
+        s["witness"] = {k: wit[k] for k in (
+            "update_rel_dist", "update_cosine", "update_norm_ratio",
+            "stats_max_err_of_scale")}
+        checks[f"{name}_ranks_equal"] = (ranks[0][name]["digest"]
+                                         == ranks[1][name]["digest"])
+        checks[f"{name}_stem_once_a_rank"] = all(
+            all(v == 1 for k, v in r[name]["launches"].items()
+                if k.startswith("stem_")) for r in ranks)
+        steps[name] = s
+    summed = _update_check(got["bf16_summed"], one["bf16"]["flat"],
+                           flats["bf16"], 0.05, 0.999)
+    steps["bf16_summed_gradients"] = {k: summed[k] for k in (
+        "update_rel_dist", "update_cosine", "update_norm_ratio")}
+    checks["bf16_update_norm_rejects_summed_gradients"] = not (
+        norm_ratio[0] <= summed["update_norm_ratio"] <= norm_ratio[1])
+    stem_dp = {}
+    for dtype, t in STEM_DP_TOL.items():
+        stem_dp[dtype] = _stem_dp_check(
+            [{k[len(dtype) + 1:]: v for k, v in r.items()
+              if k.startswith(dtype + "/")} for r in stem_ranks],
+            stem_one[dtype], t)
+        checks[f"stem_op_dp_{dtype}"] = stem_dp[dtype].pop("ok")
+    fsdp = _update_check(got["fsdp_f32"], got["f32"], flats["f32"], 0.05,
+                         0.999)
+    fsdp.update(loss_rel_err=abs(ranks[0]["fsdp_f32"]["loss"]
+                                 - ranks[0]["f32"]["loss"])
+                / abs(ranks[0]["f32"]["loss"]),
+                sharded_leaves=ranks[0]["fsdp_f32"]["sharded_leaves"],
+                launches_by_rank=[r["fsdp_f32"]["launches"] for r in ranks])
+    checks["fsdp_update"] = fsdp.pop("ok")
+    checks["fsdp_loss"] = fsdp["loss_rel_err"] <= 1e-5
+    checks["fsdp_sharded"] = fsdp["sharded_leaves"] >= 10
+    checks["fsdp_stem_once_a_rank"] = all(
+        all(v == 1 for k, v in r["fsdp_f32"]["launches"].items()
+            if k.startswith("stem_")) for r in ranks)
+    rec.update(steps=steps, stem_op_dp_B8_a_rank=stem_dp,
+               fsdp_two_ranks=fsdp,
+               tolerance={"f32": "loss 1e-5 relative; the update within 5% "
+                                 "of one process's norm, cosine >= 0.999 "
+                                 "(the CPU tests' bound: at random weights "
+                                 "a step's update is ill-conditioned, and "
+                                 "podtpu's own 2- and 1-device CPU steps "
+                                 "differ by 3.5% of its norm), its norm "
+                                 f"ratio in {list(norm_ratio)}; BN running "
+                                 "statistics 1e-4 of their scale",
+                          "bf16": "loss 1e-2 relative (bf16's unit "
+                                  "roundoff 3.9e-3); the update's norm "
+                                  f"ratio in {list(norm_ratio)} (the "
+                                  "planted summed-gradient step must fail "
+                                  "it); its direction not checked (the "
+                                  "one-ulp witness moves it by about its "
+                                  "norm); BN running statistics 1e-2 of "
+                                  "their scale",
+                          "stem_op_dp": {
+                              "measure": "max |two ranks - one process| "
+                                         "over the one process's max |.|; "
+                                         "gradients added over the ranks",
+                              **STEM_DP_TOL},
+                          "fsdp": "loss 1e-5, the update within 5% and "
+                                  "cosine 0.999, against the two ranks' DP "
+                                  "step"})
+    stem_b8 = ranks[0]["stem_B8"]
+
+    # the two-rank run through the user's entry point, from phase 9's files
+    cfg = dict(fit["cfg"], save_dir=os.path.join(tmp, "runs_parallel"),
+               epochs=1, batch_size=PARALLEL_B, workers=4, save_freq=100)
+    cfg_path = _write_yaml(cfg, tmp, "parallel.yaml")
+    fit_out = os.path.join(tmp, "parallel_fit")
+    t0 = time.perf_counter()
+    _finish_procs(_start_procs([[
+        py, "-m", "torch.distributed.run", "--standalone",
+        "--nproc_per_node", "2", me, "--parallel-fit-rank", cfg_path,
+        fit_out]], tmp, "parallel_fit"), "the two-rank run")
+    fit_s = time.perf_counter() - t0
+    fit_ranks = [json.load(open(f"{fit_out}.rank{r}.json")) for r in range(2)]
+    with np.load(f"{fit_out}.rows.npz") as f:
+        n_rows = len({k.split("/")[0] for k in f.files})
+        rows = [tuple(f[f"{i}/{k}"] for k in ("annot", "dets", "valid"))
+                for i in range(n_rows)]
+    runs_dir = os.path.join(cfg["save_dir"], "yolov3_voc")
+    checks["fit_one_run_dir"] = os.listdir(runs_dir) == ["version_0"]
+    last = os.path.join(runs_dir, "version_0", "checkpoints", "last")
+    # one process's validate of the weights the run ended with (its last
+    # validate ran on them), the same rows recorded
+    trainer = Trainer(dict(cfg, batch_size=PARALLEL_B // 2), device=dev,
+                      eval_only=True, log=lambda _m: None)
+    restore_weights(last, trainer.state)
+    one_rows = []
+    update = trainer.map_metric.update_state
+
+    def recording(annot, dets, valid):
+        one_rows.append((np.asarray(annot), np.asarray(dets),
+                         np.asarray(valid)))
+        return update(annot, dets, valid)
+
+    trainer.map_metric.update_state = recording
+    val_one = trainer.validate(make_loaders(trainer.cfg)[1])
+    # the run's rows in its order (per batch, rank 0's then rank 1's) are
+    # images 0, 2, 4, ... and 1, 3, 5, ...: put them in image order
+    n_val = sum(len(r[0]) for r in one_rows)
+    per_rank = n_val // 2
+    order = []
+    for b in range(-(-per_rank // (PARALLEL_B // 2))):
+        for r in range(2):
+            shard = np.arange(n_val)[r::2]
+            order.extend(shard[b * 8:(b + 1) * 8].tolist())
+    dp = [np.concatenate([row[i] for row in rows]) for i in range(3)]
+    one_cat = [np.concatenate([row[i] for row in one_rows]) for i in range(3)]
+    inv = np.argsort(np.asarray(order))
+    dp = [a[inv] for a in dp]
+    history = fit_ranks[0]["history"][-1]
+    fit_rec = {
+        "seconds": fit_s, "steps": fit_ranks[0]["step"],
+        "launches_by_rank": [r["launches"] for r in fit_ranks],
+        "val_mAP_two_ranks": history["val_mAP"],
+        "val_mAP_one_process": val_one["val_mAP"],
+        "val_loss_two_ranks": history["val_loss"],
+        "val_loss_one_process": val_one["val_loss"],
+        "images": n_val,
+        "valid_equal": bool(np.array_equal(dp[2], one_cat[2])),
+        "annot_equal": bool(np.array_equal(dp[0], one_cat[0])),
+        "det_max_abs_err": float(np.abs(
+            np.where(one_cat[2][..., None], dp[1] - one_cat[1], 0)).max()),
+        "detections": int(one_cat[2].sum())}
+    checks["fit_annot_order"] = fit_rec["annot_equal"]
+    checks["fit_valid_equal"] = fit_rec["valid_equal"]
+    checks["fit_dets"] = fit_rec["det_max_abs_err"] <= 1e-2
+    checks["fit_val_mAP"] = abs(fit_rec["val_mAP_two_ranks"]
+                                - fit_rec["val_mAP_one_process"]) <= 1e-6
+    # the val losses differ by their padding: each rank fills its last
+    # batch (4 of 36 images) with repeats of its last image, which the
+    # loss counts, as podtpu's hosts do; one process at B=8 pads nothing
+    fit_rec["val_loss_note"] = "the ranks' last batches are padded"
+    n_steps = len(make_loaders(cfg, 0, 2)[0])
+    checks["fit_stem_every_step"] = all(
+        all(v == n_steps for k, v in r["launches"].items()
+            if k.startswith("stem_")) for r in fit_ranks)
+    rec["fit"] = fit_rec
+    del trainer
+
+    # (b) one rank under nccl
+    nccl_out = os.path.join(tmp, "parallel_nccl.json")
+    _finish_procs(_start_procs([[
+        py, me, "--parallel-nccl", os.path.join(tmp, "parallel_nccl_store"),
+        nccl_out]], tmp, "parallel_nccl"), "the nccl rank")
+    nccl = json.load(open(nccl_out))
+    checks["nccl_dp_bit_equal_plain"] = nccl["dp_bit_equal_plain"]
+    checks["nccl_fsdp_update"] = nccl["fsdp_vs_plain"]["ok"]
+    checks["nccl_fsdp_loss"] = nccl["fsdp_loss_rel_err"] <= 1e-5
+    rec["nccl_B64_bf16"] = {k: {m: v[m] for m in ("loss", "ms_per_step",
+                                                  "peak_gb", "launches",
+                                                  "sharded_leaves")}
+                            for k, v in nccl.items()
+                            if k in ("plain", "dp", "fsdp")}
+    rec["nccl_B64_bf16"]["fsdp_vs_plain"] = nccl["fsdp_vs_plain"]
+    emit({"phase": "parallel", "config": "configs/yolov3_voc.yaml",
+          "two_ranks_share_one_card": "a correctness run, not a scaling "
+                                      "number",
+          **rec, "stem_B8_per_rank": stem_b8["timing"], "checks": checks,
+          "seconds": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise AssertionError(f"the parallel phase failed its checks: "
+                             f"{ {k: v for k, v in checks.items() if not v} }")
+    launches = {f"rank{r}": {k: sum(ranks[r][n]["launches"][k]
+                                    for n in ("f32", "bf16", "fsdp_f32"))
+                             + fit_ranks[r]["launches"][k]
+                             for k in ranks[r]["f32"]["launches"]}
+                for r in range(2)}
+    return launches, stem_b8
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4064,6 +4688,8 @@ def main() -> int:
         # 20. the export path: artifacts, NPU checks, int8, cli.test
         export_launches, export_artifacts = export_phase(
             cfg, flat, dev, card, fit, images, tmp)
+        # 21. data parallelism, FSDP and the multi-process run
+        parallel_launches, stem_dp = parallel_phase(dev, card, fit, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for e in stem_entries:
@@ -4080,6 +4706,14 @@ def main() -> int:
         e["launches_options"] = options_launches[e["name"]]
         e["launches_pretrain"] = pretrain_launches[e["name"]]
         e["launches_export"] = export_launches[e["name"]]
+        for r in ("rank0", "rank1"):
+            e[f"launches_parallel_{r}"] = parallel_launches[r][e["name"]]
+        t_dp = stem_dp["timing"][e["name"][len("stem_"):]]
+        e.update(ms_dp_B8_per_rank=t_dp["ms"],
+                 plain_ms_dp_B8_per_rank=t_dp["plain_ms"],
+                 bound_ms_dp_B8_per_rank=t_dp["bound_ms"],
+                 max_abs_err_dp_B8=stem_dp["max_abs_err"][
+                     e["name"][len("stem_"):]])
         for size, rec in pretrain_stem.items():
             t = rec["timing"][e["name"][len("stem_"):]]
             tag = f"{size}px_B{rec['batch']}"
@@ -4128,6 +4762,10 @@ def main() -> int:
         "launches_options": options_launches["greedy_suppress"],
         "launches_pretrain": pretrain_launches["greedy_suppress"],
         "launches_export": export_launches["greedy_suppress"],
+        "launches_parallel_rank0": parallel_launches["rank0"][
+            "greedy_suppress"],
+        "launches_parallel_rank1": parallel_launches["rank1"][
+            "greedy_suppress"],
         "ms_artifact_B8": export_artifacts["B8"]["ms_artifact_B8"],
         "ms_in_process_B8": export_artifacts["B8"]["ms_in_process_B8"],
         **{f"{k}_retina": retina_suppress[k]
@@ -4146,5 +4784,16 @@ def main() -> int:
     return 0
 
 
+# the processes phase parallel starts: chip_smoke.py MODE ARGS...
+_RANK_MODES = {"--parallel-rank": parallel_rank_main,
+               "--parallel-fit-rank": parallel_fit_rank_main,
+               "--parallel-nccl": parallel_nccl_main}
+
+
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] in _RANK_MODES:
+        import faulthandler
+
+        faulthandler.enable()
+        sys.exit(_RANK_MODES[sys.argv[1]](sys.argv[2:]))
     sys.exit(main())

@@ -5,19 +5,16 @@ otherwise."""
 import argparse
 
 from podtpu_torch.config import get_configs
-from podtpu_torch.train.run import train
+from podtpu_torch.train.run import add_args, distributed, train
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cfg", type=str, default="configs/yolov2_voc.yaml")
-    ap.add_argument("--resume", type=str, default=None)
-    ap.add_argument("--epochs", type=int, default=None)
-    ap.add_argument("--device", type=str, default="cuda",
-                    help="torch device (cpu for local runs)")
+    add_args(ap, cfg="configs/yolov2_voc.yaml", device="cuda")
     args = ap.parse_args(argv)
-    return train(get_configs(args.cfg), resume=args.resume, epochs=args.epochs,
-                 device=args.device)
+    with distributed(args) as device:
+        return train(get_configs(args.cfg), resume=args.resume,
+                     epochs=args.epochs, device=device)
 
 
 if __name__ == "__main__":

@@ -243,8 +243,8 @@ def separable_affine(images: torch.Tensor, geom: torch.Tensor
 
 
 def make_device_augment(cfg: dict):
-    """Config -> ``fn(images, annots, generator) -> (images, annots)``, or
-    None when cfg ``device_augment`` is off."""
+    """Config -> ``fn(images, annots, generator, rows=None) -> (images,
+    annots)``, or None when cfg ``device_augment`` is off."""
     if not cfg.get("device_augment", False):
         return None
     hsv = str(cfg.get("device_hsv", "approx"))
@@ -252,8 +252,14 @@ def make_device_augment(cfg: dict):
         raise ValueError(f"device_hsv must be 'exact' or 'approx', not "
                          f"{hsv!r}")
 
-    def augment(images, annots, generator):
-        gains, flips = draw_augment(images.shape[0], generator)
+    def augment(images, annots, generator, rows=None):
+        # rows: (the global batch, this rank's rows of it or None), from
+        # parallel/mesh.py::global_rows: under data parallelism the draws
+        # are the global batch's, as one process running it whole draws
+        n, part = rows or (images.shape[0], None)
+        gains, flips = draw_augment(n, generator)
+        if part is not None:
+            gains, flips = gains[part], flips[part]
         return apply_augment(images, annots, gains, flips, hsv)
 
     return augment

@@ -39,6 +39,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from podtpu_torch.parallel.mesh import full_tree, load_full_state
+
 SEP = "::"
 
 # port leaf -> (collection, podtpu leaf)
@@ -151,8 +153,10 @@ def flat_from_tensors(state_dict: dict[str, torch.Tensor],
 
 
 def flat_from_state_dict(model: torch.nn.Module) -> dict[str, np.ndarray]:
-    """The model's weights in ``podtpu``'s flat ``.npz`` layout."""
-    return flat_from_tensors(model.state_dict(), conv_paths(model))
+    """The model's weights in ``podtpu``'s flat ``.npz`` layout (of a
+    model sharded by FSDP, gathered whole: every rank calls it)."""
+    return flat_from_tensors(full_tree(model.state_dict()),
+                             conv_paths(model))
 
 
 def load_flat_weights(model: torch.nn.Module, flat: dict[str, np.ndarray],
@@ -161,7 +165,8 @@ def load_flat_weights(model: torch.nn.Module, flat: dict[str, np.ndarray],
     """``flat`` into ``model``; with ``allow_partial`` the keys it has,
     printing ``podtpu``'s "partial load" line when some are missing."""
     sd = state_dict_from_flat(model, flat, allow_partial)
-    model.load_state_dict(sd, strict=not allow_partial)
+    # whole tensors, into a model sharded by FSDP or not
+    load_full_state(model, sd, strict=not allow_partial)
     n_total = len(model.state_dict())
     if allow_partial and len(sd) < n_total:
         print(f"partial load: {len(sd)}/{n_total} leaves loaded from "

@@ -32,6 +32,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from podtpu_torch.ops import int8_conv
+from podtpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    data_parallel,
+    global_rows,
+    world,
+)
 
 REMAT_POLICIES = ("conv_out", "no_post_act")
 
@@ -166,7 +172,10 @@ class BatchNormMixed(nn.Module):
     differentiated through as flax does; the running statistics then move
     with decay ``momentum`` and the unbiased (Bessel) variance, as torch
     and ``podtpu`` update them. ``F.batch_norm`` is not used: it rounds
-    at other places.
+    at other places. Under data parallelism (more than one rank) the
+    statistics are the global batch's, as under ``podtpu``'s mesh: the
+    per-channel sums are all-reduced (``parallel/mesh.py``), and the
+    running update takes the global count for Bessel's correction.
     """
 
     momentum = 0.9  # running-stat decay (torch's momentum 0.1)
@@ -208,10 +217,22 @@ class BatchNormMixed(nn.Module):
             if remat is not None and remat.policy == "conv_out" \
                     and x32 is not x:
                 remat.add(x32, x.float)
-            mean = x32.mean(dim=(0, 2, 3))
-            var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean
-                   ).clamp_min(0.0)
-            self.update_running_stats(mean, var, x.numel() // x.shape[1])
+            n = x.numel() // x.shape[1]
+            if data_parallel():
+                # the global batch's statistics: sum x and sum x^2 over
+                # every rank's rows (equal local batches), differentiated
+                # through the all-reduce
+                c = x.shape[1]
+                s = all_reduce_sum(torch.cat([x32.sum(dim=(0, 2, 3)),
+                                              (x32 * x32).sum(dim=(0, 2, 3))]))
+                n *= world()
+                mean = s[:c] / n
+                var = (s[c:] / n - mean * mean).clamp_min(0.0)
+            else:
+                mean = x32.mean(dim=(0, 2, 3))
+                var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean
+                       ).clamp_min(0.0)
+            self.update_running_stats(mean, var, n)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
@@ -417,6 +438,12 @@ class SeededDropout(nn.Module):
         if gen is None:
             gen = self._gens[x.device] = torch.Generator(device=x.device)
             gen.manual_seed(self.seed)
-        keep = torch.empty(x.shape, device=x.device).bernoulli_(
+        # under data parallelism the global batch's mask, of which this
+        # rank keeps its rows: the masks of a one-process run
+        b, rows = global_rows(x.shape[0])
+        keep = torch.empty((b,) + tuple(x.shape[1:]),
+                           device=x.device).bernoulli_(
             1.0 - self.rate, generator=gen).bool()
+        if rows is not None:
+            keep = keep[rows]
         return torch.where(keep, x / (1.0 - self.rate), 0.0)

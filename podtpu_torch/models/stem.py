@@ -15,6 +15,7 @@ import torch
 
 from podtpu_torch.models.layers import ConvBnAct
 from podtpu_torch.ops.kernels.stem_kernel import stem_fused
+from podtpu_torch.parallel.mesh import world
 
 
 def stem_fusable(x: torch.Tensor, training: bool, out_indices) -> bool:
@@ -44,7 +45,8 @@ def fused_stem_pool(block: ConvBnAct, x: torch.Tensor) -> torch.Tensor:
     w = block.conv.weight.permute(2, 3, 1, 0)   # OIHW -> HWIO
     pooled, mean, var = stem_fused(xh, w, bn.weight, bn.bias, bn.eps,
                                    block.dtype)
-    bn.update_running_stats(mean, var, xh.numel() // xh.shape[-1])
+    # the statistics are the global batch's under data parallelism
+    bn.update_running_stats(mean, var, xh.numel() // xh.shape[-1] * world())
     # The kernels take the ReLU as a max with 0, which maps a NaN to 0;
     # the plain version and podtpu carry it on. A NaN or inf input makes
     # the batch statistics non-finite, and this add makes the output NaN

@@ -40,7 +40,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from podtpu_torch.parallel.mesh import data_parallel, world
 
 CI, CO = 3, 32
 # rows of the kernels' partial-sum scratch: an upper bound on their grid
@@ -394,13 +397,22 @@ class StemPoolFunction(torch.autograd.Function):
     sums give ``dbias = sum d`` and ``dscale = sum d * xhat``; dW from
     ``d_pre = inv * (d - sum d / n - xhat * sum(d * xhat) / n)``. x gets no
     gradient (the stem is the first layer), and mean and var are outputs
-    for the running statistics only."""
+    for the running statistics only.
+
+    Under data parallelism (``parallel/mesh.py``) the stats kernel's sums
+    are all-reduced before ``mean`` / ``var``, with ``n`` the global count,
+    and a copy of the backward sums before ``c0`` / ``c1``; the gradients
+    returned are this rank's shares, which the train step's gradient
+    reduction adds up."""
 
     @staticmethod
     def forward(ctx, x, w, scale, bias, eps):
         b, h, wd, _ = x.shape
-        n = b * h * wd
+        n = b * h * wd * world()
         s = stem_stats(x, w)
+        if data_parallel():
+            # the global batch's sums (every rank's rows, equal batches)
+            dist.all_reduce(s)
         mean = s[0] / n
         var = (s[1] / n - mean * mean).clamp_min(0.0)
         inv = torch.rsqrt(var + eps) * scale
@@ -418,9 +430,15 @@ class StemPoolFunction(torch.autograd.Function):
         g = gp.to(x.dtype).contiguous()
         rinv = torch.rsqrt(var + ctx.eps)
         sums = stem_bwd_sums(x, w, mul, add, mean, rinv, g)
+        # this rank's sums are its share of dbias and dscale (the gradient
+        # reduction adds the shares); d_pre takes the global sums
         dbias, dscale = sums[0], sums[1]
-        dw = stem_bwd_dw(x, w, mul, add, mean, rinv, inv, dbias / ctx.n,
-                         dscale / ctx.n, g)
+        total = sums
+        if data_parallel():
+            total = sums.clone()
+            dist.all_reduce(total)
+        dw = stem_bwd_dw(x, w, mul, add, mean, rinv, inv, total[0] / ctx.n,
+                         total[1] / ctx.n, g)
         return None, dw, dscale, dbias, None
 
 
@@ -429,9 +447,11 @@ def stem_fused(x, w, scale, bias, eps: float, dtype: torch.dtype):
 
     x NHWC ``[B, H, W, 3]`` (cast to ``dtype``), w HWIO float32, scale and
     bias float32 [32] -> (pooled NHWC ``[B, H/2, W/2, 32]`` in ``dtype``,
-    batch mean, batch variance). CUDA: the kernels; CPU: the plain version.
+    batch mean, batch variance). CUDA: the kernels; CPU: the plain version
+    of the whole op, or under data parallelism the plain versions of the
+    four passes through :class:`StemPoolFunction`, with its all-reduces.
     """
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not data_parallel():
         return stem_pool_reference_torch(x, w, scale, bias, eps, dtype)
     return StemPoolFunction.apply(x.to(dtype), w.contiguous(), scale, bias,
                                   eps)

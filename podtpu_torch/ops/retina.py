@@ -18,9 +18,11 @@ import math
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 
 from podtpu_torch.losses.focal import focal_loss
 from podtpu_torch.ops.boxes import WH_CLAMP
+from podtpu_torch.parallel.mesh import data_parallel, world
 
 OCTAVES = (0.0, 1.0 / 3.0, 2.0 / 3.0)
 RATIOS = (0.5, 1.0, 2.0)
@@ -162,7 +164,7 @@ def retinanet_loss(outputs, target: torch.Tensor, num_classes: int,
                    alpha: float = 0.25, gamma: float = 2.0,
                    box_weight: float = 1.0) -> torch.Tensor:
     """Focal class loss + smooth-L1 box loss, normalized by the number of
-    positives."""
+    positives (under data parallelism, the global batch's)."""
     cls_p, box_p = _flatten_heads(outputs, num_classes)
     anchors = anchors_on(cls_p.device, input_size, strides)
     cls_t, box_t, pos, valid = assign_targets(anchors, target, num_classes,
@@ -177,8 +179,16 @@ def retinanet_loss(outputs, target: torch.Tensor, num_classes: int,
     sl1 = torch.where(diff < 1.0 / 9.0, 4.5 * diff ** 2, diff - 1.0 / 18.0)
     box_loss = (sl1 * pos[..., None]).sum() * box_weight
 
-    num_pos = pos.sum().clamp_min(1.0)
-    return (cls_loss + box_loss) / num_pos
+    if not data_parallel():
+        num_pos = pos.sum().clamp_min(1.0)
+        return (cls_loss + box_loss) / num_pos
+    # podtpu divides by the global batch's positives: summed over the ranks
+    # (no gradient through it), and the rank's loss scaled by the ranks, so
+    # that its mean over them (what the train step's averaged gradients
+    # and ``validate`` take) is the global loss
+    num_pos = pos.sum().detach().clone()
+    dist.all_reduce(num_pos)
+    return (cls_loss + box_loss) * float(world()) / num_pos.clamp_min(1.0)
 
 
 def decode_retinanet(outputs, num_classes: int, input_size: int,

@@ -25,7 +25,10 @@ and ``skip_nonfinite`` (``optax.apply_if_finite``).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from podtpu_torch.parallel.mesh import is_dtensor, local_tensors
 
 OPTIMIZERS = ("sgd", "adam", "radam", "adamw")
 
@@ -71,8 +74,20 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float
 
     Not ``torch.nn.utils.clip_grad_norm_``: it scales by
     ``max / (norm + 1e-6)`` whether or not the norm is over, a different
-    update."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    update.
+
+    Under FSDP the gradients are DTensor shards: the squares of the
+    shards' norms are summed over the ranks (the global norm to float32
+    rounding), and each rank scales its shards."""
+    sharded = any(is_dtensor(g) for g in grads)
+    grads = local_tensors(grads)
+    norms = torch.stack(torch._foreach_norm(grads))
+    if sharded:
+        sq = norms.square().sum()
+        dist.all_reduce(sq)
+        norm = sq.sqrt()
+    else:
+        norm = torch.linalg.vector_norm(norms)
     under = norm < max_norm
     # below the limit g / 1 * 1 leaves each gradient bit for bit
     torch._foreach_div_(grads, torch.where(under, 1.0, norm))
@@ -153,6 +168,10 @@ def build_optimizer(cfg: dict, model: nn.Module) -> torch.optim.Optimizer:
     groups = param_groups(cfg, model)
     flat = None
     if name == "sgd" and bool(opts.get("flat", False)):
+        if any(is_dtensor(p) for g in groups for p in g):
+            raise ValueError("optimizer_options.flat views every parameter "
+                             "in one buffer; FSDP shards them: use one or "
+                             "the other")
         flat = FlatParams(groups)
         groups = [[t] for t in flat.groups]
     decays = [wd, 0.0][:len(groups)]

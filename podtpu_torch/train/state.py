@@ -12,6 +12,12 @@ import torch
 
 from podtpu_torch.export.weights import load_flat_weights, load_npz_weights
 from podtpu_torch.models.factory import build_model
+from podtpu_torch.models.layers import ConvBnAct, HeadConv
+from podtpu_torch.parallel.mesh import (
+    apply_fsdp,
+    broadcast_module,
+    local_tensors,
+)
 from podtpu_torch.train.optim import (
     accum_steps,
     build_optimizer,
@@ -97,12 +103,14 @@ class TrainState:
             if self.mini_step == 0:
                 self.acc = grads
             else:
-                diff = torch._foreach_sub(grads, self.acc)
+                # on the local shards under FSDP (the same tensors else)
+                acc = local_tensors(self.acc)
+                diff = torch._foreach_sub(local_tensors(grads), acc)
                 # a 0-dim divisor, made on the device: true division on
                 # the card as on the CPU, and no host copy
                 torch._foreach_div_(diff, torch.full(
-                    (), float(self.mini_step + 1), device=grads[0].device))
-                torch._foreach_add_(self.acc, diff)
+                    (), float(self.mini_step + 1), device=acc[0].device))
+                torch._foreach_add_(acc, diff)
             self.mini_step += 1
             if self.mini_step < self.accum:
                 return False
@@ -142,10 +150,12 @@ class TrainState:
             f(1.0) - np.exp(-n / f(self.ema_opts["tau"])))
         state = self.model.state_dict()
         keys = list(self.ema)
-        shadow = [self.ema[k] for k in keys]
+        # under FSDP the shadow of a parameter is sharded as it is: the
+        # blend runs on the local shards
+        shadow = local_tensors([self.ema[k] for k in keys])
         torch._foreach_mul_(shadow, float(d))
-        torch._foreach_add_(shadow, [state[k].float() for k in keys],
-                            alpha=float(f(1.0) - d))
+        torch._foreach_add_(shadow, local_tensors(
+            [state[k].float() for k in keys]), alpha=float(f(1.0) - d))
 
 
 def total_notfinite(state: TrainState) -> int | None:
@@ -155,20 +165,30 @@ def total_notfinite(state: TrainState) -> int | None:
 
 
 def create_train_state(cfg: dict, device: str | torch.device | None = None,
-                       weights: dict[str, np.ndarray] | None = None
-                       ) -> TrainState:
+                       weights: dict[str, np.ndarray] | None = None,
+                       fsdp_mesh=None) -> TrainState:
     """Build the model named in ``cfg`` in train mode on ``device`` (cuda by
     default) with its optimizer. ``weights``: ``podtpu``'s flat weights
     (``export/weights.py``) to start from instead of PyTorch's init. Then
     cfg ``backbone_pretrained`` (a ``podtpu`` ``.npz``, or '' for none) is
     loaded over them partially: the keys it has, the rest kept. With cfg
-    ``ema`` the shadow starts from the weights after both loads."""
+    ``ema`` the shadow starts from the weights after both loads.
+
+    Under a process group every rank then takes rank 0's weights (as DDP
+    does), and with ``fsdp_mesh`` the whole model is sharded over it
+    (``parallel/mesh.py::apply_fsdp``) before the optimizer and the shadow
+    are made from the shards."""
     model = build_model(cfg, device, train=True)
     if weights is not None:
         load_flat_weights(model, weights)
     pretrained = cfg.get("backbone_pretrained")
     if pretrained:
         load_npz_weights(model, pretrained, allow_partial=True)
+    broadcast_module(model)
+    if fsdp_mesh is not None:
+        # each block (conv + BN + activation, the heads' 1x1 convs) is one
+        # FSDP unit
+        apply_fsdp(model, fsdp_mesh, (ConvBnAct, HeadConv))
     state = TrainState(model, build_optimizer(cfg, model),
                        build_schedule(cfg), clip_norm=clip_grad_norm(cfg),
                        accum=accum_steps(cfg), skip=skip_nonfinite(cfg),

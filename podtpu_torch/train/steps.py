@@ -48,6 +48,13 @@ from podtpu_torch.ops.decode import (
 )
 from podtpu_torch.ops.nms import batched_class_aware_nms
 from podtpu_torch.ops.retina import decode_retinanet
+from podtpu_torch.parallel.mesh import (
+    agree_all,
+    average_gradients,
+    global_rows,
+    gradients_of,
+    local_tensors,
+)
 from podtpu_torch.train.optim import all_finite, skip_nonfinite
 
 
@@ -380,7 +387,14 @@ def make_train_step(cfg: dict) -> Callable:
     gradients are finite (the optimizer's guard,
     :meth:`TrainState.apply_gradients`) and whether they and the new BN
     statistics are (else the statistics go back to the step's start, as
-    ``podtpu`` keeps a NaN out of them)."""
+    ``podtpu`` keeps a NaN out of them).
+
+    Under a process group (``parallel/mesh.py``) ``batch`` holds this
+    rank's rows of the global batch: BatchNorm and the stem take the global
+    statistics, the gradients are averaged over the ranks after the
+    backward (FSDP reduces its own), the guard's flags are read after that
+    and agreed by every rank, and the augmentation and dropout draws are
+    the global batch's, of which the rank keeps its rows."""
     loss_fn = build_loss(cfg)
     policy = remat_policy(cfg)
     guard = skip_nonfinite(cfg) > 0
@@ -392,6 +406,10 @@ def make_train_step(cfg: dict) -> Callable:
     def train_step(state, batch):
         model = state.model
         model.train()
+        # before the forward: FSDP's root unit keeps its whole parameters
+        # registered from its forward to its backward, and their sharded
+        # gradients would then be accumulated into
+        model.zero_grad(set_to_none=True)
         # dropout masks from (seed, step), as podtpu folds the step into
         # its dropout key: a resumed run draws the masks it would have
         for m in model.modules():
@@ -409,7 +427,8 @@ def make_train_step(cfg: dict) -> Callable:
                     gen = gens[img.device] = torch.Generator(
                         device=img.device)
                 gen.manual_seed(augment_seed(seed, state.step))
-                img, annot = device_aug(img, annot, gen)
+                img, annot = device_aug(img, annot, gen,
+                                        global_rows(img.shape[0]))
         if guard:
             bns = [m for m in model.modules() if isinstance(m, BatchNormMixed)]
             stats = [t for m in bns for t in (m.running_mean, m.running_var)]
@@ -418,14 +437,18 @@ def make_train_step(cfg: dict) -> Callable:
             preds = model(_as_input(img))
         with record_function("loss"):
             loss = loss_fn(preds, annot)
-        model.zero_grad(set_to_none=True)
         with record_function("backward"):
             loss.backward()
+        # under a process group the gradients are averaged over it
+        with record_function("gradient_reduction"):
+            average_gradients(state.params())
         with record_function("optimizer"):
             if guard:
-                grads = [p.grad for p in state.params() if p.grad is not None]
-                finite, stats_ok = torch.stack(
-                    [all_finite(grads), all_finite(stats)]).tolist()
+                # read after the reduction, and agreed: every rank takes
+                # the same branch (an FSDP rank sees its shards alone)
+                grads = local_tensors(gradients_of(state.params()))
+                finite, stats_ok = agree_all(torch.stack(
+                    [all_finite(grads), all_finite(stats)])).tolist()
                 if not (finite and stats_ok):
                     with torch.no_grad():
                         for t, t0 in zip(stats, start):

@@ -23,7 +23,15 @@ train_yolov3.py:50-74):
   ``<save_dir>/<model>_<dataset>/version_N/`` (utils/utility.py:13-14),
   and with cfg ``log_images: N`` the first val batch's detections drawn.
 
-One process, one device: no mesh (ROADMAP.md queue 1, item 9).
+Under a process group (``parallel/mesh.py``; ``train/run.py
+--distributed``) each rank trains on its rows of the global batch: data
+parallelism with global BatchNorm, or with cfg ``parallel_options.fsdp``
+FSDP2; ``tensor`` / ``spatial`` raise. Rank 0 makes the run directory,
+writes the checkpoints (gathered whole under FSDP, so that they load in
+any topology) and the TensorBoard scalars; ``validate`` scores every
+rank's rows on every rank (the global mAP) and averages the val loss over
+the ranks; a SIGTERM or early stop on one rank stops every rank at the
+same step.
 """
 
 from __future__ import annotations
@@ -43,6 +51,22 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from podtpu_torch import resolve_device
 from podtpu_torch.config import make_model_name
 from podtpu_torch.metrics import MeanAveragePrecision
+from podtpu_torch.models.factory import build_model
+from podtpu_torch.parallel.mesh import (
+    any_rank,
+    barrier,
+    broadcast_object,
+    full_tree,
+    gather_rows,
+    is_distributed,
+    load_full_state,
+    make_mesh,
+    mean_over_ranks,
+    parallel_options,
+    rank,
+    shard_like,
+    world,
+)
 from podtpu_torch.train.state import (
     TrainState,
     create_train_state,
@@ -111,9 +135,12 @@ class CheckpointIO:
     drains the writers still reading the buffers.
     """
 
-    def __init__(self, ckpt_dir: str, async_save: bool = False):
+    def __init__(self, ckpt_dir: str, async_save: bool = False,
+                 writes: bool = True):
         self._ckpt_dir = os.path.abspath(ckpt_dir)
-        os.makedirs(self._ckpt_dir, exist_ok=True)
+        self._writes = bool(writes)  # rank 0 writes, the others wait
+        if self._writes:
+            os.makedirs(self._ckpt_dir, exist_ok=True)
         self._async = bool(async_save)
         self._writers: dict[str, threading.Thread] = {}  # target -> writer
         # the host copy: its buffers, the (storage, version) of each tensor
@@ -176,13 +203,16 @@ class CheckpointIO:
 
     def wait(self):
         """Block until every pending write is on disk, swap the staged
-        named targets into place, and raise a writer's error."""
+        named targets into place, and raise a writer's error. Under a
+        process group every rank then meets at a barrier, so a checkpoint
+        rank 0 wrote is on disk for all of them."""
         for key in list(self._writers):
             self._drain(key)
         for name in list(self._staged):
             self._staged.discard(name)
             self._finalize(name)
         self._raise_errors()
+        barrier()
 
     def _to_host(self, key: str, payload: dict) -> dict:
         """``payload`` with every tensor in the host buffers, which ``key``'s
@@ -234,6 +264,13 @@ class CheckpointIO:
         }
         if state.ema is not None:
             payload["ema"] = state.ema
+        # the one-process layout: FSDP's shards gathered whole (every rank
+        # takes part), written by rank 0 alone
+        payload = full_tree(payload)
+        if not self._writes:
+            if not self._async:
+                self.wait()
+            return
         staged = name in _STAGED
         key = name if staged else "periodic"
         # this target's pending write must end before its files are reused
@@ -267,7 +304,7 @@ class CheckpointIO:
         name string (lexicographic order inverts past epoch 9999)."""
         import re
 
-        if keep <= 0:
+        if keep <= 0 or not self._writes:
             return
         committed = []
         for d in os.listdir(self._ckpt_dir):
@@ -287,16 +324,26 @@ class CheckpointIO:
         reseeds it from the restored weights."""
         self.wait()
         payload = _load_payload(path, state)
-        state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        # whole tensors; under FSDP each rank keeps its shards of them
+        load_full_state(state.model, payload["model"])
+        params = state.params()
+        osd = payload["optimizer"]
+        osd["state"] = {i: {k: shard_like(v, params[i])
+                            if torch.is_tensor(v) and v.dim() else v
+                            for k, v in s.items()}
+                        for i, s in osd["state"].items()}
+        state.optimizer.load_state_dict(osd)
         state.step = int(payload["step"])
         state.count = int(payload.get("count", state.step))
         for k in ("mini_step", "notfinite_count", "total_notfinite"):
             setattr(state, k, int(payload.get(k, 0)))
-        state.acc = payload.get("acc")
+        acc = payload.get("acc")
+        state.acc = (None if acc is None else
+                     [shard_like(a, p) for a, p in zip(acc, params)])
         if state.ema is not None:
             if "ema" in payload:
-                state.ema = {k: v.float() for k, v in payload["ema"].items()}
+                state.ema = {k: shard_like(v.float(), state.ema[k])
+                             for k, v in payload["ema"].items()}
             else:
                 state.init_ema()
         return state
@@ -347,7 +394,7 @@ def restore_weights(path: str, state: TrainState,
         weights.update(payload["ema"])
     else:
         weights = payload["model"]
-    state.model.load_state_dict(weights)
+    load_full_state(state.model, weights)
     state.ema = None
     return state
 
@@ -394,6 +441,17 @@ def put_group(batches: list[dict], device: torch.device) -> dict:
     return out
 
 
+class _NullWriter:
+    def add_scalar(self, *a, **k):
+        pass
+
+    def add_image(self, *a, **k):
+        pass
+
+    def flush(self):
+        pass
+
+
 class Trainer:
     def __init__(self, cfg: dict, run_dir: str | None = None,
                  log: Callable[[str], None] = print,
@@ -402,10 +460,19 @@ class Trainer:
         self.cfg = cfg
         self.log = log
         self.device = resolve_device(device)
+        # cfg parallel_options: fsdp shards over the group; tensor and
+        # spatial raise (podtpu's _pick_mesh)
+        self._fsdp = parallel_options(cfg)
+        if self._fsdp and not is_distributed():
+            raise ValueError("parallel_options.fsdp shards over a process "
+                             "group: launch with torchrun and --distributed")
+        self._replica = None  # the whole model FSDP's evaluation runs on
         # seeded init without touching the caller's global RNG
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(int(cfg.get("seed", 0)))
-            self.state = create_train_state(cfg, self.device)
+            self.state = create_train_state(
+                cfg, self.device,
+                fsdp_mesh=make_mesh(self.device.type) if self._fsdp else None)
         self.train_step = make_train_step(cfg)
         # cfg ``steps_per_dispatch: K``: K optimizer steps a call over a
         # stacked group of K batches; ragged epoch tails run the single step
@@ -419,11 +486,16 @@ class Trainer:
         self.map_metric = MeanAveragePrecision(
             cfg["num_classes"], cfg["input_size"]
         )
-        # eval-only consumers don't create run directories or checkpoints
-        self.run_dir = None if eval_only else (run_dir or make_run_dir(cfg))
+        # eval-only consumers don't create run directories or checkpoints;
+        # under a process group rank 0 makes the one run directory
+        if not eval_only and run_dir is None:
+            run_dir = broadcast_object(make_run_dir(cfg) if rank() == 0
+                                       else None)
+        self.run_dir = None if eval_only else run_dir
         self.ckpt = (None if eval_only else
                      CheckpointIO(os.path.join(self.run_dir, "checkpoints"),
-                                  bool(cfg.get("async_checkpoint", False))))
+                                  bool(cfg.get("async_checkpoint", False)),
+                                  writes=rank() == 0))
         self._writer = None
         self.history: list[dict] = []
         self.log(
@@ -433,23 +505,15 @@ class Trainer:
 
     @property
     def writer(self):
+        if self._writer is None and rank() != 0:
+            self._writer = _NullWriter()  # rank 0 writes the scalars
         if self._writer is None:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
                 self._writer = SummaryWriter(self.run_dir)
             except Exception:  # tensorboard unavailable -> no-op writer
-                class _Null:
-                    def add_scalar(self, *a, **k):
-                        pass
-
-                    def add_image(self, *a, **k):
-                        pass
-
-                    def flush(self):
-                        pass
-
-                self._writer = _Null()
+                self._writer = _NullWriter()
         return self._writer
 
     def fit(self, train_loader, val_loader, epochs: int | None = None,
@@ -494,6 +558,7 @@ class Trainer:
         # stdout is a tty so logs/CI stay clean
         progress = bool(cfg.get("progress", True)) and sys.stdout.isatty()
         steps_per_epoch = len(train_loader)
+        stop = False
 
         try:
             for epoch in range(start_epoch, epochs):
@@ -516,7 +581,9 @@ class Trainer:
                         self.state, metrics = self.train_step(
                             self.state, put_batch(batch, self.device))
                         losses.append(metrics["loss"])
-                    if preempt.is_set():
+                    # a SIGTERM on any rank stops every rank at this step
+                    stop = any_rank(preempt.is_set())
+                    if stop:
                         break
                     if progress and (i % 10 == 9 or i + 1 == steps_per_epoch):
                         # float() syncs on the newest loss (tty only)
@@ -533,7 +600,7 @@ class Trainer:
                     losses.append(metrics["loss"])
                 if progress:
                     sys.stdout.write("\r\033[K")
-                if preempt.is_set():
+                if stop:
                     self.ckpt.save("last", self.state)
                     self.ckpt.wait()  # durable before the process may end
                     self.log(f"SIGTERM: saved preemption checkpoint 'last' at "
@@ -542,7 +609,10 @@ class Trainer:
                     break
                 if not losses:
                     raise RuntimeError("empty train loader")
-                train_loss = float(torch.stack(losses).mean())
+                # the global batch's loss: the mean of the ranks'
+                train_loss = mean_over_ranks(
+                    float(torch.stack(losses).mean()))
+                n_images *= world()
                 step = self.state.step
                 # podtpu's logged lr: the schedule at step // accum_steps
                 lr = float(self.state.schedule(step // self.state.accum))
@@ -599,7 +669,7 @@ class Trainer:
                         f"{k}={v:.5g}" for k, v in row.items() if k != "epoch"
                     )
                 )
-                if bad_rounds >= patience:
+                if any_rank(bad_rounds >= patience):
                     self.log(f"early stopping after {bad_rounds} stale rounds")
                     break
         finally:
@@ -613,10 +683,13 @@ class Trainer:
             # stays the last trained weights. Averaging shifts every layer's
             # activations, so BN is recalibrated with a forward-only sweep
             # over the train loader (torch.optim.swa_utils.update_bn role)
-            swa_model = copy.deepcopy(self.state.model)
-            with torch.no_grad():
-                for name, p in swa_model.named_parameters():
-                    p.copy_(swa_params[name])
+            if self._fsdp:
+                swa_model = self._whole_model(full_tree(swa_params))
+            else:
+                swa_model = copy.deepcopy(self.state.model)
+                with torch.no_grad():
+                    for name, p in swa_model.named_parameters():
+                        p.copy_(swa_params[name])
             swa_state = TrainState(swa_model, self.state.optimizer,
                                    self.state.schedule, self.state.step)
             n_recal = int(swa_cfg.get("bn_recal_batches", 20))
@@ -714,7 +787,12 @@ class Trainer:
         """The state evaluation runs on: with cfg ``ema.eval`` a copy of
         the model holding the EMA shadow's weights, else the training
         state itself."""
-        if not (self._ema_eval and self.state.ema is not None):
+        use_ema = self._ema_eval and self.state.ema is not None
+        if self._fsdp:
+            return TrainState(self._whole_model(
+                full_tree(self.state.ema) if use_ema else None),
+                self.state.optimizer, self.state.schedule, self.state.step)
+        if not use_ema:
             return self.state
         if self._ema_model is None:
             self._ema_model = copy.deepcopy(self.state.model)
@@ -724,9 +802,30 @@ class Trainer:
         return TrainState(self._ema_model, self.state.optimizer,
                           self.state.schedule, self.state.step)
 
+    def _whole_model(self, override: dict | None = None):
+        """Under FSDP: a plain model on this rank's device holding the
+        whole weights (gathered: every rank calls it), with ``override``'s
+        entries in place of theirs; evaluation, the EMA's and SWA's
+        weights run on it."""
+        weights = full_tree(self.state.model.state_dict())
+        weights.update(override or {})
+        if self._replica is None:
+            devices = [self.device] if self.device.type == "cuda" else []
+            with torch.random.fork_rng(devices=devices):
+                self._replica = build_model(self.cfg, self.device,
+                                            train=True)
+        self._replica.load_state_dict(weights)
+        return self._replica
+
     def validate(self, val_loader) -> dict:
         """val_loss + val_mAP over the full validation set, on
-        :meth:`_eval_state`."""
+        :meth:`_eval_state`.
+
+        Under a process group each rank's loader holds its shard (equal
+        batch counts), every rank's (annot, dets, valid, n_valid) rows are
+        gathered to every rank, so each scores the global mAP as
+        ``podtpu``'s hosts do, and the val loss is the mean over the
+        ranks."""
         self.map_metric.reset_states()
         losses = []
         val_loader.set_epoch(0)
@@ -736,10 +835,12 @@ class Trainer:
             loss, dets, valid = self.eval_step(
                 eval_state, put_batch(batch, self.device))
             losses.append(float(loss))
-            # a padded final batch repeats its last sample: slice them off
-            self.map_metric.update_state(batch["annot"][:n_valid],
-                                         dets[:n_valid].cpu().numpy(),
-                                         valid[:n_valid].cpu().numpy())
-        val_loss = float(np.mean(losses)) if losses else float("nan")
+            rows = (batch["annot"], dets.cpu().numpy(), valid.cpu().numpy(),
+                    int(n_valid))
+            for ann, det, val, nv in gather_rows(rows):
+                # a padded final batch repeats its last sample: slice them
+                self.map_metric.update_state(ann[:nv], det[:nv], val[:nv])
+        val_loss = mean_over_ranks(float(np.mean(losses)) if losses
+                                   else float("nan"))
         val_map = self.map_metric.result()
         return {"val_loss": val_loss, "val_mAP": val_map}
