@@ -213,6 +213,16 @@ raising on failure:
    nccl: the B=64 DP and FSDP steps beside the plain step (ms a step, peak
    GB). Two ranks on one card check correctness; they are no scaling
    number. Every process it starts has a hard timeout.
+22. layouts: the tensor-parallel and spatial layouts (``parallel/
+   layouts.py``). Two ranks share the card over gloo as one data row:
+   YOLOv3-416 as shipped at 8 images on a ``(model=2)`` mesh, then a
+   ``(space=2)`` mesh (the stem's four kernels on blocks of 208 rows with
+   their halo), a float32 (TF32 off) and a bf16 train step and the
+   float32 eval step against one process's (``LAYOUTS_TOL``), with ms a
+   step and peak GB beside the plain step's; meanwhile the halo stem
+   kernels against their plain twins and the whole-image kernels in both
+   dtypes (a halo of zeros must fail), timed on a block of 208 rows;
+   then ``cli/autobatch.py`` on YOLOv3-416 at batches 32, 64 and 128.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -506,14 +516,15 @@ def offset_boxes(rng, b, k, device):
             torch.from_numpy(valid).to(device))
 
 
-def stem_bound(kind, b, h, w, itemsize):
-    """(bound_ms, bound_by, {term: ms}) of one stem kernel at [b, h, w, 3]:
-    the largest of the times of the resources that run at once. Bytes: x
-    read once, the weights and vectors, the pooled output or cotangent
-    once. Tensor cores (bf16): the conv's multiply-adds, twice for dW.
-    float32 pipes: the epilogue's operations, and in float32 the conv's."""
+def stem_bound(kind, b, h, w, itemsize, halo=False):
+    """(bound_ms, bound_by, {term: ms}) of one stem kernel at [b, h, w, 3]
+    (with ``halo``, [b, h + 2, w, 3] computing h rows): the largest of the
+    times of the resources that run at once. Bytes: x read once, the
+    weights and vectors, the pooled output or cotangent once. Tensor cores
+    (bf16): the conv's multiply-adds, twice for dW. float32 pipes: the
+    epilogue's operations, and in float32 the conv's."""
     px = b * h * w
-    nbytes = px * 3 * itemsize + 27 * 32 * 4
+    nbytes = b * (h + 2 * int(halo)) * w * 3 * itemsize + 27 * 32 * 4
     if kind != "stats":
         nbytes += (px // 4) * 32 * itemsize + 7 * 32 * 4
     conv = 2 * 27 * 32 * px * (2 if kind == "bwd_dw" else 1)
@@ -4034,9 +4045,9 @@ def _stem_dp_check(ranks: list[dict], one: dict, tol: dict) -> dict:
     return rec
 
 
-def _summed_gradients(params):
+def _summed_gradients(params, *_model_axis):
     """A planted fault for the bf16 step's check: the ranks' gradients
-    summed, not averaged."""
+    summed, not averaged (in place of ``average_gradients``)."""
     from podtpu_torch.parallel import mesh
 
     for g in mesh.gradients_of(params):
@@ -4486,6 +4497,434 @@ def parallel_phase(dev, card, fit, tmp) -> dict:
                 for r in range(2)}
     return launches, stem_b8
 
+# ---- phase 22: the tensor and spatial layouts ------------------------------
+
+LAYOUTS_B = 8  # the layouts' global batch: every rank holds all 8 images
+# the layouts' checks against one process, as a share of the one
+# process's largest magnitude. float32 with TF32 off: the loss to 1e-5
+# (its sums reassociated by the channel gathers and the row blocks); the
+# update within 5% of its norm at cosine 0.999 (the CPU tests' bound: at
+# random weights a step's update is ill-conditioned); BN running
+# statistics to 1e-4; the eval heads to 1e-4 (cuDNN picks other
+# algorithms for a channel slice or a row block, which sum a conv's
+# products in another order; the CPU tests hold 1e-5), equal valid masks
+# and detections to rtol 1e-4 / atol 1e-4 (podtpu's
+# test_spatial_eval_matches_single_device: an absolute 1e-2 px fails on
+# random-weight boxes thousands of px wide by their float32 rounding,
+# 0.023 px). bf16 as phase 21 holds it:
+# the loss and statistics to 1e-2, the update's norm ratio in [0.8, 1.25]
+# (its direction moves by about its norm under a one-ulp nudge).
+LAYOUTS_TOL = {"float32": {"loss": 1e-5, "stats": 1e-4, "heads": 1e-4,
+                           "dets_rtol": 1e-4, "update_rel": 0.05,
+                           "update_cos": 0.999},
+               "bfloat16": {"loss": 1e-2, "stats": 1e-2,
+                            "norm_ratio": (0.8, 1.25)}}
+LAYOUTS_AXES = {"tensor": "model", "spatial": "space"}
+
+
+def layouts_step(cfg, flat, host, dev, timed=True) -> dict:
+    """One train step from ``flat`` on every row of ``host`` in the
+    process's layout (no group: the plain step): the loss, the whole
+    updated flat weights and the kernels' launches; with ``timed`` a
+    second step's ms (host clock ending in a synchronize) and the peak
+    GB allocated over it."""
+    from podtpu_torch.export.weights import flat_from_state_dict
+    from podtpu_torch.train.state import create_train_state
+    from podtpu_torch.train.steps import make_train_step
+
+    state = create_train_state(cfg, dev, weights=flat)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    step = make_train_step(cfg)
+    _zero_counts()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    out = {"loss": float(m["loss"]), "launches": _counts(),
+           "flat": flat_from_state_dict(state.model),
+           "split_kernels": len(getattr(state.model, "tp_keys", ()))}
+    if timed:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out["ms_per_step"] = (time.perf_counter() - t0) * 1e3
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def layouts_eval(cfg, flat, host, dev) -> dict:
+    """The eval step (loss, detections) and the eval-mode heads of a state
+    holding ``flat``, in the process's layout, as float32 arrays; with
+    the suppression's launches."""
+    from podtpu_torch.parallel.layouts import layout_scope, space_rows
+    from podtpu_torch.train.state import create_train_state
+    from podtpu_torch.train.steps import _as_input, make_eval_step
+
+    state = create_train_state(cfg, dev, weights=flat)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    _zero_counts()
+    loss, dets, valid = make_eval_step(cfg)(state, batch)
+    torch.cuda.synchronize()
+    launches = _counts()
+    model = state.model.eval()
+    with torch.no_grad(), layout_scope(model):
+        heads = model(space_rows(_as_input(batch["img"]), model))
+    out = {"loss": loss, "dets": dets, "valid": valid,
+           **{f"head{i}": h for i, h in enumerate(heads)}}
+    out = {k: v.detach().float().cpu().numpy() for k, v in out.items()}
+    del state
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def layouts_rank_main(argv) -> int:
+    """``chip_smoke.py --layouts-rank R W STORE OUT``: one of two ranks
+    sharing the card over gloo (CUDA tensors), as one data row: on a
+    ``(model=2)`` mesh, then a ``(space=2)`` mesh, YOLOv3-416 as shipped
+    at 8 images (every rank holds all of them): a float32 and a bf16 train
+    step, each timed again, and the float32 eval step. Writes its record
+    to ``OUT.json`` and (rank 0) its weights and eval arrays to
+    ``OUT.npz``."""
+    from podtpu_torch.models.factory import build_model
+    from podtpu_torch.parallel import mesh
+
+    rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.join("gloo", torch.device("cuda", 0), rank, world,
+                    f"file://{store}", timeout_s=PARALLEL_TIMEOUT_S)
+    rec, arrays = {"rank": rank, "device": str(dev)}, {}
+    flat = random_weights(build_model(parallel_cfg("float32"), "cpu"), SEED)
+    try:
+        for key, axis in LAYOUTS_AXES.items():
+            mesh.make_mesh("cuda", **{key: 2})
+            for dtype in LAYOUTS_TOL:
+                cfg = parallel_cfg(dtype)
+                host = parallel_batch(cfg, LAYOUTS_B, SEED + 7)
+                print(f"rank {rank}: {axis} {dtype} step", flush=True)
+                r = layouts_step(cfg, flat, host, dev)
+                weights = r.pop("flat")
+                r["digest"] = _flat_digest(weights)
+                if dtype == "float32":
+                    ev, r["eval_launches"] = layouts_eval(cfg, flat, host,
+                                                          dev)
+                    arrays.update({f"{axis}_eval/{k}": v
+                                   for k, v in ev.items()})
+                if rank == 0:
+                    arrays.update({f"{axis}_{dtype}/{k}": v
+                                   for k, v in weights.items()})
+                rec[f"{axis}_{dtype}"] = r
+        mesh.barrier()
+    finally:
+        mesh.shutdown()
+    with open(out + ".json", "w") as f:
+        json.dump(rec, f)
+    if rank == 0:
+        np.savez(out + ".npz", **arrays)
+    return 0
+
+
+def halo_blocks(x, n=2, zero_halo=False):
+    """The n row blocks of NHWC ``x``, each with one row of the block above
+    and one of the block below (zeros at the image's edge, or in place of
+    every neighbour row with ``zero_halo``): the halo kernels' input."""
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 1, 1)).to(x.dtype)
+    k = x.shape[1] // n
+    out = []
+    for i in range(n):
+        blk = xp[:, i * k:i * k + k + 2].clone()
+        if zero_halo:
+            blk[:, 0].zero_()
+            blk[:, -1].zero_()
+        out.append(blk.contiguous())
+    return out
+
+
+def halo_stem_checks(sk, dtype, dev, b, seed, timed=False):
+    """The four stem kernels with ``halo`` on the two row blocks of a
+    416 px batch (208 rows each): each against its plain twin with the
+    halo on the same block (the per-kernel limits of phase 6), and the
+    blocks together against the whole-image kernels: the pooled rows bit
+    for bit, the stats, sums and dW added over the blocks to the limits
+    of the plain checks. A halo of zeros in place of the neighbour rows
+    must change the pooled rows. With ``timed`` each kernel is timed on
+    one block beside its plain twin and its bound. Returns (checks,
+    max_abs_err per kernel, timing)."""
+    t = STEM_TOL[dtype]
+    x, w, scale, bias, g = stem_inputs(b, dtype, dev, seed)
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    s_whole = sk.stem_stats(x, w)
+    mean = s_whole[0] / n
+    var = (s_whole[1] / n - mean * mean).clamp_min(0.0)
+    rinv = torch.rsqrt(var + 1e-5)
+    inv = rinv * scale
+    mul, add = inv.to(dtype).float(), (bias - mean * inv).to(dtype).float()
+    u_whole = sk.stem_bwd_sums(x, w, mul, add, mean, rinv, g)
+    vecs = (mul, add, mean, rinv, inv, u_whole[0] / n, u_whole[1] / n)
+    blocks, gs = halo_blocks(x), [c.contiguous() for c in g.chunk(2, dim=1)]
+    kern = {"stats": lambda blk, gi: sk.stem_stats(blk, w, halo=True),
+            "emit": lambda blk, gi: sk.stem_emit(blk, w, mul, add, halo=True),
+            "bwd_sums": lambda blk, gi: sk.stem_bwd_sums(
+                blk, w, *vecs[:4], gi, halo=True),
+            "bwd_dw": lambda blk, gi: sk.stem_bwd_dw(blk, w, *vecs, gi,
+                                                     halo=True)}
+    plain = {"stats": lambda blk, gi: sk.stem_stats_reference(
+                 blk, w, halo=True),
+             "emit": lambda blk, gi: sk.stem_emit_reference(
+                 blk, w, mul, add, halo=True),
+             "bwd_sums": lambda blk, gi: sk.stem_bwd_sums_reference(
+                 blk, w, *vecs[:4], gi, halo=True),
+             "bwd_dw": lambda blk, gi: sk.stem_bwd_dw_reference(
+                 blk, w, *vecs, gi, halo=True)}
+    got = {k: [f(blk, gi) for blk, gi in zip(blocks, gs)]
+           for k, f in kern.items()}
+    want = {k: [f(blk, gi) for blk, gi in zip(blocks, gs)]
+            for k, f in plain.items()}
+    c, err, ok = {}, {}, True
+    for k in kern:
+        r_ = want[k]
+        if k == "emit":
+            ok_e, c["emit"] = pooled_check(torch.cat(got[k], dim=1),
+                                           torch.cat(r_, dim=1), dtype)
+            ok &= ok_e
+            err[k] = c["emit"]["max_abs"]
+            continue
+        c[f"{k}_rel"] = max(rel_err(p, q) for p, q in zip(got[k], r_))
+        c[f"{k}_cos"] = min(cosine(p, q) for p, q in zip(got[k], r_))
+        err[k] = max(float((p - q).abs().max()) for p, q in zip(got[k], r_))
+        if k == "stats" or dtype == torch.float32:
+            ok &= c[f"{k}_rel"] <= t["stats" if k == "stats" else "bwd"]
+        else:
+            ok &= (c[f"{k}_rel"] <= t["bwd_rel"]
+                   and c[f"{k}_cos"] >= t["bwd_cos"])
+    c["deterministic"] = all(torch.equal(kern[k](blocks[0], gs[0]),
+                                         got[k][0]) for k in kern)
+    whole = {"stats": s_whole, "bwd_sums": u_whole,
+             "bwd_dw": sk.stem_bwd_dw(x, w, *vecs, g)}
+    c["vs_whole"] = {
+        "emit_bit_equal": bool(torch.equal(
+            torch.cat(got["emit"], dim=1), sk.stem_emit(x, w, mul, add))),
+        **{f"{k}_rel": rel_err(got[k][0] + got[k][1], v)
+           for k, v in whole.items()}}
+    lim = {"stats": t["stats"],
+           "bwd_sums": t.get("bwd", t.get("bwd_rel")),
+           "bwd_dw": t.get("bwd", t.get("bwd_rel"))}
+    ok &= c["vs_whole"]["emit_bit_equal"] and c["deterministic"]
+    ok &= all(c["vs_whole"][f"{k}_rel"] <= lim[k] for k in whole)
+    zeroed = torch.cat([sk.stem_emit(blk, w, mul, add, halo=True)
+                        for blk in halo_blocks(x, zero_halo=True)], dim=1)
+    zero_ok, c["zero_halo_fault"] = pooled_check(
+        zeroed, sk.stem_emit(x, w, mul, add), dtype)
+    c["zero_halo_fault"]["caught"] = not zero_ok
+    ok &= not zero_ok
+    torch.cuda.synchronize()
+    if not ok:
+        raise AssertionError(f"the halo stem kernels fail their checks in "
+                             f"{dtype} at B={b}: {c}")
+    timing = {}
+    if timed:
+        size = x.shape[2]
+        for k in kern:
+            bound_ms, bound_by, terms = stem_bound(
+                k, b, size // 2, size, x.element_size(), halo=True)
+            timing[k] = {
+                "ms": cuda_ms(lambda: kern[k](blocks[0], gs[0]), 20),
+                "plain_ms": cuda_ms(lambda: plain[k](blocks[0], gs[0]), 5),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_terms_ms": terms,
+                "shape": [b, size // 2 + 2, size, 3]}
+    return c, err, timing
+
+
+def autobatch_run(cfg_path, batches=(32, 64, 128)) -> dict:
+    """``cli/autobatch.py``'s measurement of the config as shipped at each
+    batch on the card, and its recommendation for the card's memory."""
+    from podtpu_torch.cli.autobatch import (
+        device_memory_bytes,
+        measure_memory,
+        recommend,
+    )
+    from podtpu_torch.config import get_configs
+
+    cfg = get_configs(cfg_path)
+    rows = [measure_memory(cfg, b) for b in batches]
+    limit = device_memory_bytes()
+    return {"rows": rows, "memory_bytes": limit, "frac": 0.9,
+            "recommended": recommend(rows, limit, 0.9),
+            "peak_grows": all(a["peak"] < b["peak"]
+                              for a, b in zip(rows, rows[1:]))}
+
+
+def layouts_phase(dev, card, tmp) -> dict:
+    """Phase 22. (a) Two ranks sharing the card over gloo, one data row:
+    YOLOv3-416 as shipped (full width and depth) at 8 images, on a
+    ``(model=2)`` mesh then a ``(space=2)`` mesh: float32 (TF32 off) and
+    bf16 train steps and the float32 eval step against one process's,
+    with their ms and peak GB beside the plain step's (one process runs
+    first, the ranks after it). Then (b) the halo stem kernels at two
+    blocks of 208 rows against their plain twins and the whole-image
+    kernels, float32 and bf16, timed at B=8 and 64 on the idle card, and
+    (c) ``cli/autobatch.py`` on YOLOv3-416 at 32, 64 and 128. Two
+    ranks on one card check correctness; they are no scaling number.
+    Returns the kernels' launches under the layouts and the halo
+    kernels' records."""
+    from podtpu_torch.models.factory import build_model
+    from podtpu_torch.ops.kernels import stem_kernel as sk
+
+    t_phase = time.perf_counter()
+    checks = {}
+    # one process first, the card to itself (its ms are the plain step's)
+    flat = random_weights(build_model(parallel_cfg("float32"), "cpu"), SEED)
+    one = {}
+    for dtype in LAYOUTS_TOL:
+        cfg = parallel_cfg(dtype)
+        host = parallel_batch(cfg, LAYOUTS_B, SEED + 7)
+        one[dtype] = layouts_step(cfg, flat, host, dev)
+        if dtype == "float32":
+            one["eval"], one["eval_launches"] = layouts_eval(cfg, flat, host,
+                                                             dev)
+    me = os.path.abspath(__file__)
+    store = os.path.join(tmp, "layouts_store")
+    out = [os.path.join(tmp, f"layouts_rank{r}") for r in range(2)]
+    _finish_procs(_start_procs([[sys.executable, me, "--layouts-rank", str(r),
+                                 "2", store, out[r]] for r in range(2)], tmp,
+                               "layouts_rank"), "the layouts' ranks")
+    # the halo kernels once the ranks are gone (their ms on an idle card)
+    halo = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        halo[name] = {}
+        for b in (8, 64):
+            c, err, timing = halo_stem_checks(
+                sk, dtype, dev, b, SEED + 13,
+                timed=dtype == torch.bfloat16 or b == 8)
+            halo[name][f"B{b}"] = {"checks": c, "max_abs_err": err,
+                                   "timing": timing}
+    ranks = [json.load(open(o + ".json")) for o in out]
+    with np.load(out[0] + ".npz") as f:
+        arrays = {k: f[k] for k in f.files}
+    steps = {}
+    for key, axis in LAYOUTS_AXES.items():
+        for dtype, tol in LAYOUTS_TOL.items():
+            tag = f"{axis}_{dtype}"
+            got = {k[len(tag) + 1:]: v for k, v in arrays.items()
+                   if k.startswith(tag + "/")}
+            s = _update_check(got, one[dtype]["flat"], flat,
+                              tol.get("update_rel", 1.0),
+                              tol.get("update_cos", -1.0))
+            ok = s.pop("ok")
+            loss = ranks[0][tag]["loss"]
+            s.update(loss=loss, loss_one_process=one[dtype]["loss"],
+                     loss_rel_err=abs(loss - one[dtype]["loss"])
+                     / abs(one[dtype]["loss"]),
+                     ms_per_step_by_rank=[r[tag]["ms_per_step"]
+                                          for r in ranks],
+                     peak_gb_by_rank=[r[tag]["peak_gb"] for r in ranks],
+                     ms_per_step_one_process=one[dtype]["ms_per_step"],
+                     peak_gb_one_process=one[dtype]["peak_gb"],
+                     launches_by_rank=[r[tag]["launches"] for r in ranks],
+                     split_kernels=ranks[0][tag]["split_kernels"])
+            checks[f"{tag}_loss"] = s["loss_rel_err"] <= tol["loss"]
+            checks[f"{tag}_stats"] = s["stats_max_err_of_scale"] <= tol[
+                "stats"]
+            checks[f"{tag}_ranks_equal"] = (ranks[0][tag]["digest"]
+                                            == ranks[1][tag]["digest"])
+            checks[f"{tag}_stem_once_a_rank"] = all(
+                all(v == 1 for k, v in r[tag]["launches"].items()
+                    if k.startswith("stem_")) for r in ranks)
+            if dtype == "float32":
+                checks[f"{tag}_update"] = ok
+                ev = {k[len(axis) + 6:]: v for k, v in arrays.items()
+                      if k.startswith(f"{axis}_eval/")}
+                s["eval"] = {
+                    "loss_rel_err": abs(float(ev["loss"] - one["eval"][
+                        "loss"])) / abs(float(one["eval"]["loss"])),
+                    "heads_err_of_scale": max(
+                        float(np.abs(ev[f"head{i}"] - one["eval"][f"head{i}"])
+                              .max() / np.abs(one["eval"][f"head{i}"]).max())
+                        for i in range(3)),
+                    "valid_equal": bool(np.array_equal(ev["valid"],
+                                                       one["eval"]["valid"])),
+                    "dets_max_abs_px": float(np.abs(np.where(
+                        one["eval"]["valid"][..., None],
+                        ev["dets"] - one["eval"]["dets"], 0)).max()),
+                    # <= 1 where allclose(rtol=atol=dets_rtol) holds
+                    "dets_closeness": float((np.abs(
+                        ev["dets"] - one["eval"]["dets"])
+                        / (tol["dets_rtol"] * (1.0 + np.abs(
+                            one["eval"]["dets"]))))[
+                                one["eval"]["valid"].astype(bool)].max()),
+                    "dets_largest_px": float(np.abs(one["eval"]["dets"][
+                        ..., :4]).max()),
+                    "detections": int(one["eval"]["valid"].sum()),
+                    "launches_by_rank": [r[tag]["eval_launches"]
+                                         for r in ranks]}
+                checks[f"{axis}_eval_loss"] = s["eval"]["loss_rel_err"] <= \
+                    tol["loss"]
+                checks[f"{axis}_eval_heads"] = s["eval"][
+                    "heads_err_of_scale"] <= tol["heads"]
+                checks[f"{axis}_eval_valid"] = s["eval"]["valid_equal"]
+                checks[f"{axis}_eval_dets"] = s["eval"]["dets_closeness"] \
+                    <= 1.0
+                checks[f"{axis}_eval_suppress_once_a_rank"] = all(
+                    r[tag]["eval_launches"]["greedy_suppress"] == 1
+                    for r in ranks)
+            else:
+                lo, hi = tol["norm_ratio"]
+                checks[f"{tag}_update_norm"] = lo <= s[
+                    "update_norm_ratio"] <= hi
+            steps[tag] = s
+    checks["tensor_splits_kernels"] = steps["model_float32"][
+        "split_kernels"] >= 20
+    for name, by_b in halo.items():
+        for b, r in by_b.items():
+            checks[f"halo_{name}_{b}_zero_fault_caught"] = r["checks"][
+                "zero_halo_fault"]["caught"]
+    t0 = time.perf_counter()
+    auto = autobatch_run(os.path.join(REPO, "configs", "yolov3_voc.yaml"))
+    auto["seconds"] = time.perf_counter() - t0
+    checks["autobatch_peak_grows"] = auto["peak_grows"]
+    print(f"autobatch: recommended per-card batch {auto['recommended']} "
+          f"for {auto['memory_bytes'] / 2 ** 30:.1f} GiB on {card}",
+          flush=True)
+    emit({"phase": "layouts", "config": "configs/yolov3_voc.yaml",
+          "two_ranks_share_one_card": "a correctness run, not a scaling "
+                                      "number",
+          "steps_B8": steps, "halo_stem_kernels": halo,
+          "autobatch": auto, "tolerance": {
+              "float32": "loss 1e-5 relative; the update within 5% of one "
+                         "process's norm at cosine 0.999; BN running "
+                         "statistics 1e-4 and eval heads 1e-4 of their "
+                         "scale (other cuDNN algorithms for a channel "
+                         "slice or a row block); equal valid masks, "
+                         "detections rtol 1e-4 / atol 1e-4",
+              "bfloat16": "loss and BN statistics 1e-2; the update's norm "
+                          "ratio in [0.8, 1.25]",
+              "halo_stem_kernels": "each kernel against its plain twin with "
+                                   "the halo at phase 6's limits; the two "
+                                   "blocks' pooled rows bit for bit the "
+                                   "whole image's, their stats, sums and "
+                                   "dW added within the same limits of "
+                                   "the whole-image kernels; a halo of "
+                                   "zeros must fail"},
+          "checks": checks, "seconds": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise AssertionError(f"the layouts phase failed its checks: "
+                             f"{ {k: v for k, v in checks.items() if not v} }")
+    launches = {f"rank{r}": {k: sum(ranks[r][f"{axis}_{d}"]["launches"][k]
+                                    for axis in LAYOUTS_AXES.values()
+                                    for d in LAYOUTS_TOL)
+                             + sum(ranks[r][f"{axis}_float32"][
+                                 "eval_launches"][k]
+                                   for axis in LAYOUTS_AXES.values())
+                             for k in ranks[r]["model_float32"]["launches"]}
+                for r in range(2)}
+    launches["spatial_rank0"] = {k: sum(
+        ranks[0][f"space_{d}"]["launches"][k] for d in LAYOUTS_TOL)
+        for k in ranks[0]["space_float32"]["launches"]}
+    return launches, halo
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4690,6 +5129,9 @@ def main() -> int:
             cfg, flat, dev, card, fit, images, tmp)
         # 21. data parallelism, FSDP and the multi-process run
         parallel_launches, stem_dp = parallel_phase(dev, card, fit, tmp)
+        # 22. the tensor and spatial layouts, the halo stem kernels and
+        # autobatch
+        layouts_launches, halo = layouts_phase(dev, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for e in stem_entries:
@@ -4708,6 +5150,20 @@ def main() -> int:
         e["launches_export"] = export_launches[e["name"]]
         for r in ("rank0", "rank1"):
             e[f"launches_parallel_{r}"] = parallel_launches[r][e["name"]]
+            e[f"launches_layouts_{r}"] = layouts_launches[r][e["name"]]
+        kind = e["name"][len("stem_"):]
+        # the halo kernels: launched under the spatial layout (rank 0's
+        # float32 and bf16 steps), timed on a block of 208 of 416 rows
+        e["launches_spatial_rank0"] = layouts_launches["spatial_rank0"][
+            e["name"]]
+        for b in ("B8", "B64"):
+            t_h = halo["bfloat16"][b]["timing"][kind]
+            e.update({f"ms_halo_208_{b}": t_h["ms"],
+                      f"plain_ms_halo_208_{b}": t_h["plain_ms"],
+                      f"bound_ms_halo_208_{b}": t_h["bound_ms"]})
+        e["ms_halo_208_B8_f32"] = halo["float32"]["B8"]["timing"][kind]["ms"]
+        e["max_abs_err_halo"] = max(halo[d][b]["max_abs_err"][kind]
+                                    for d in halo for b in halo[d])
         t_dp = stem_dp["timing"][e["name"][len("stem_"):]]
         e.update(ms_dp_B8_per_rank=t_dp["ms"],
                  plain_ms_dp_B8_per_rank=t_dp["plain_ms"],
@@ -4766,6 +5222,10 @@ def main() -> int:
             "greedy_suppress"],
         "launches_parallel_rank1": parallel_launches["rank1"][
             "greedy_suppress"],
+        "launches_layouts_rank0": layouts_launches["rank0"][
+            "greedy_suppress"],
+        "launches_layouts_rank1": layouts_launches["rank1"][
+            "greedy_suppress"],
         "ms_artifact_B8": export_artifacts["B8"]["ms_artifact_B8"],
         "ms_in_process_B8": export_artifacts["B8"]["ms_in_process_B8"],
         **{f"{k}_retina": retina_suppress[k]
@@ -4784,10 +5244,11 @@ def main() -> int:
     return 0
 
 
-# the processes phase parallel starts: chip_smoke.py MODE ARGS...
+# the processes phases parallel and layouts start: chip_smoke.py MODE ARGS...
 _RANK_MODES = {"--parallel-rank": parallel_rank_main,
                "--parallel-fit-rank": parallel_fit_rank_main,
-               "--parallel-nccl": parallel_nccl_main}
+               "--parallel-nccl": parallel_nccl_main,
+               "--layouts-rank": layouts_rank_main}
 
 
 if __name__ == "__main__":

@@ -237,14 +237,21 @@ constexpr int kDwSlices = kThreads / kDwTiles;  // 10 pixel slices
 // rows of the per-channel vector argument [kVecRows][kCo]
 enum { kMul, kAdd, kMean, kRinv, kInv, kC0, kC1, kVecRows };
 
+// h: the rows the conv is computed for. With a halo (a block of an
+// image's rows under the spatial layout) the input holds hin = h + 2 rows:
+// one row of the block above, the h interior rows, one row of the block
+// below. Conv row y reads input rows y - 1 + halo .. y + 1 + halo, and only
+// rows outside [0, hin) are the conv's zero padding.
 struct Shape {
-  int b, h, w, ph, pw, tiles_y, tiles_x, tiles;
+  int b, h, w, ph, pw, tiles_y, tiles_x, tiles, halo, hin;
 };
 
-Shape make_shape(int b, int h, int w) {
+Shape make_shape(int b, int h, int w, int halo) {
   Shape s;
   s.b = b;
   s.h = h;
+  s.halo = halo;
+  s.hin = h + 2 * halo;
   s.w = w;
   s.ph = h / 2;
   s.pw = w / 2;
@@ -299,24 +306,25 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ vec,
   for (int i = threadIdx.x; i < rows * kCo; i += kThreads) vs[i] = vec[i];
 }
 
-// xs[(r * kIX + c) * kCi + ci] = x[img, 2*py0 - 1 + r, 2*px0 - 1 + c, ci],
-// zero outside the image (the conv's padding).
+// xs[(r * kIX + c) * kCi + ci] = x[img, 2*py0 - 1 + r, 2*px0 - 1 + c, ci]
+// (input row shifted by the halo), zero outside the input (the conv's
+// padding).
 template <typename T>
 __device__ __forceinline__ void load_tile(const T* __restrict__ x,
                                           const Shape& s, const Tile& t,
                                           float* xs) {
   const int y0 = 2 * t.py0 - 1;
   const int x0 = 2 * t.px0 - 1;
-  const T* img = x + static_cast<size_t>(t.img) * s.h * s.w * kCi;
+  const T* img = x + static_cast<size_t>(t.img) * s.hin * s.w * kCi;
   for (int i = threadIdx.x; i < kTileIn; i += kThreads) {
     const int ci = i % kCi;
     const int rc = i / kCi;
     const int c = rc % kIX;
     const int r = rc / kIX;
-    const int yy = y0 + r;
+    const int yy = y0 + r + s.halo;
     const int xx = x0 + c;
     float v = 0.0f;
-    if (yy >= 0 && yy < s.h && xx >= 0 && xx < s.w)
+    if (yy >= 0 && yy < s.hin && xx >= 0 && xx < s.w)
       v = to_f32(img[(static_cast<size_t>(yy) * s.w + xx) * kCi + ci]);
     xs[i] = v;
   }
@@ -770,13 +778,19 @@ __device__ __forceinline__ void load_weight_frags(
       }
 }
 
-// First byte of the raw row y of the tile's input window in x: image
-// columns from ca on.
+// First byte of the raw row y (conv coordinates) of the tile's input
+// window in x: image columns from ca on.
 __device__ __forceinline__ const unsigned char* raw_row_start(
     const __nv_bfloat16* __restrict__ x, const Shape& s, int img, int y,
     int ca) {
   return reinterpret_cast<const unsigned char*>(
-      x + ((static_cast<size_t>(img) * s.h + y) * s.w + ca) * kCi);
+      x + ((static_cast<size_t>(img) * s.hin + y + s.halo) * s.w + ca) * kCi);
+}
+
+// Whether conv row y reads a row of the input (its halo rows included),
+// not the zero padding.
+__device__ __forceinline__ bool row_in_input(const Shape& s, int y) {
+  return y + s.halo >= 0 && y + s.halo < s.hin;
 }
 
 // Loads and staging share one map of threads onto the 18 x 34 input
@@ -799,7 +813,7 @@ __device__ __forceinline__ void start_x_loads(
   const int cb = x0 + kIX < s.w ? x0 + kIX : s.w;
   const int r = threadIdx.x / kSegs, sg = threadIdx.x % kSegs;
   const int y = 2 * t.py0 - 1 + r;
-  if (r < kIY && y >= 0 && y < s.h) {
+  if (r < kIY && row_in_input(s, y)) {
     const unsigned char* first = raw_row_start(x, s, t.img, y, ca);
     const unsigned char* end = first + (cb - ca) * kCi * 2;
     const unsigned char* src =
@@ -849,7 +863,7 @@ __device__ __forceinline__ void stage_tile(
   const int x0 = 2 * t.px0 - 1;
   const int ca = x0 < 0 ? 0 : x0;
   const int y = 2 * t.py0 - 1 + r;
-  const bool row_in = y >= 0 && y < s.h;
+  const bool row_in = row_in_input(s, y);
   // the row's bytes begin at its phase within the first chunk
   const int phase =
       row_in ? static_cast<int>(reinterpret_cast<uintptr_t>(
@@ -1403,8 +1417,9 @@ cudaError_t reduce(const float* partials, int rows, int cols, float* out,
   return cudaGetLastError();
 }
 
-bool bad_shape(int b, int h, int w) {
-  return b <= 0 || h <= 0 || w <= 0 || h % 2 != 0 || w % 2 != 0;
+bool bad_shape(int b, int h, int w, int halo) {
+  return b <= 0 || h <= 0 || w <= 0 || h % 2 != 0 || w % 2 != 0 ||
+         (halo != 0 && halo != 1);
 }
 
 // A kernel that leaves one row of `cols` partial sums per block, then the
@@ -1412,9 +1427,9 @@ bool bad_shape(int b, int h, int w) {
 // the weights and the shape (none for stats; vec and g in the backward).
 template <typename T, typename K, typename... A>
 int sum_pass(K kernel, int cols, const void* x, const void* w, void* partials,
-             int max_blocks, void* out, int b, int h, int wd,
+             int max_blocks, void* out, int b, int h, int wd, int halo,
              cudaStream_t stream, A... args) {
-  const Shape s = make_shape(b, h, wd);
+  const Shape s = make_shape(b, h, wd, halo);
   int nblk = 0;
   cudaError_t err = grid_for(kernel, s, max_blocks, &nblk);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1429,8 +1444,9 @@ int sum_pass(K kernel, int cols, const void* x, const void* w, void* partials,
 
 template <typename T, typename K>
 int emit_pass(K kernel, const void* x, const void* w, const void* vec,
-              void* out, int b, int h, int wd, cudaStream_t stream) {
-  const Shape s = make_shape(b, h, wd);
+              void* out, int b, int h, int wd, int halo,
+              cudaStream_t stream) {
+  const Shape s = make_shape(b, h, wd, halo);
   int nblk = 0;
   cudaError_t err = grid_for(kernel, s, 1 << 30, &nblk);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1449,13 +1465,14 @@ bool misaligned(const void* a, const void* b = nullptr) {
 
 int bwd_entry(bool dw, const void* x, const void* w, const void* vec,
               const void* g, void* partials, int max_blocks, void* out, int b,
-              int h, int wd, int bf16, void* stream) {
-  if (bad_shape(b, h, wd) || max_blocks <= 0)
+              int h, int wd, int bf16, int halo, void* stream) {
+  if (bad_shape(b, h, wd, halo) || max_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const int cols = dw ? kTaps * kCo : 2 * kCo;
 #define PODTPU_BWD(T, kernel)                                              \
-  sum_pass<T>(kernel, cols, x, w, partials, max_blocks, out, b, h, wd, st, \
+  sum_pass<T>(kernel, cols, x, w, partials, max_blocks, out, b, h, wd,    \
+              halo, st,                                                    \
               static_cast<const float*>(vec), static_cast<const T*>(g))
   if (!bf16)
     return dw ? PODTPU_BWD(float, bwd_dw_kernel<float>)
@@ -1469,7 +1486,9 @@ int bwd_entry(bool dw, const void* x, const void* w, const void* vec,
 }  // namespace
 
 // Plain C entry points. x: [b, h, w, 3] NHWC in the compute dtype (bf16 when
-// `bf16` is non-zero, else float32); w: [27, 32] float32 holding the
+// `bf16` is non-zero, else float32), or with `halo` = 1 [b, h + 2, w, 3]:
+// a block of an image's rows with one row of each neighbour block, of
+// which the kernels compute the h interior rows; w: [27, 32] float32 holding the
 // compute-dtype weights, taps (ky, kx, ci); vec: [7, 32] float32 rows mul,
 // add, mean, rinv, inv, c0, c1 (emit reads mul and add); g and the pooled
 // output: [b, h/2, w/2, 32] in the compute dtype; partials: max_blocks rows
@@ -1480,42 +1499,45 @@ int bwd_entry(bool dw, const void* x, const void* w, const void* vec,
 
 extern "C" int podtpu_stem_stats(const void* x, const void* w, void* partials,
                                  int max_blocks, void* out, int b, int h,
-                                 int wd, int bf16, void* stream) {
-  if (bad_shape(b, h, wd) || max_blocks <= 0)
+                                 int wd, int bf16, int halo, void* stream) {
+  if (bad_shape(b, h, wd, halo) || max_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   if (!bf16)
     return sum_pass<float>(stats_kernel<float>, 2 * kCo, x, w, partials,
-                           max_blocks, out, b, h, wd, st);
+                           max_blocks, out, b, h, wd, halo, st);
   if (misaligned(x)) return static_cast<int>(cudaErrorMisalignedAddress);
   return sum_pass<__nv_bfloat16>(stats_tc_kernel, 2 * kCo, x, w, partials,
-                                 max_blocks, out, b, h, wd, st);
+                                 max_blocks, out, b, h, wd, halo, st);
 }
 
 extern "C" int podtpu_stem_emit(const void* x, const void* w, const void* vec,
                                 void* out, int b, int h, int wd, int bf16,
-                                void* stream) {
-  if (bad_shape(b, h, wd)) return static_cast<int>(cudaErrorInvalidValue);
+                                int halo, void* stream) {
+  if (bad_shape(b, h, wd, halo))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   if (!bf16)
-    return emit_pass<float>(emit_kernel<float>, x, w, vec, out, b, h, wd, st);
+    return emit_pass<float>(emit_kernel<float>, x, w, vec, out, b, h, wd, halo,
+                            st);
   if (misaligned(x, out)) return static_cast<int>(cudaErrorMisalignedAddress);
-  return emit_pass<__nv_bfloat16>(emit_tc_kernel, x, w, vec, out, b, h, wd, st);
+  return emit_pass<__nv_bfloat16>(emit_tc_kernel, x, w, vec, out, b, h, wd,
+                                  halo, st);
 }
 
 extern "C" int podtpu_stem_bwd_sums(const void* x, const void* w,
                                     const void* vec, const void* g,
                                     void* partials, int max_blocks, void* out,
-                                    int b, int h, int wd, int bf16,
+                                    int b, int h, int wd, int bf16, int halo,
                                     void* stream) {
   return bwd_entry(false, x, w, vec, g, partials, max_blocks, out, b, h, wd,
-                   bf16, stream);
+                   bf16, halo, stream);
 }
 
 extern "C" int podtpu_stem_bwd_dw(const void* x, const void* w, const void* vec,
                                   const void* g, void* partials, int max_blocks,
                                   void* out, int b, int h, int wd, int bf16,
-                                  void* stream) {
+                                  int halo, void* stream) {
   return bwd_entry(true, x, w, vec, g, partials, max_blocks, out, b, h, wd,
-                   bf16, stream);
+                   bf16, halo, stream);
 }

@@ -39,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from podtpu_torch.parallel.mesh import full_tree, load_full_state
+from podtpu_torch.parallel.mesh import full_tree, gather_model, load_full_state
 
 SEP = "::"
 
@@ -154,9 +154,12 @@ def flat_from_tensors(state_dict: dict[str, torch.Tensor],
 
 def flat_from_state_dict(model: torch.nn.Module) -> dict[str, np.ndarray]:
     """The model's weights in ``podtpu``'s flat ``.npz`` layout (of a
-    model sharded by FSDP, gathered whole: every rank calls it)."""
-    return flat_from_tensors(full_tree(model.state_dict()),
-                             conv_paths(model))
+    model sharded by FSDP or split by the tensor layout, gathered whole:
+    every rank calls it)."""
+    sd = full_tree(model.state_dict())
+    for k in sorted(getattr(model, "tp_keys", ())):
+        sd[k] = gather_model(sd[k])
+    return flat_from_tensors(sd, conv_paths(model))
 
 
 def load_flat_weights(model: torch.nn.Module, flat: dict[str, np.ndarray],

@@ -31,13 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+import torch.distributed as dist
+
 from podtpu_torch.ops import int8_conv
-from podtpu_torch.parallel.mesh import (
-    all_reduce_sum,
-    data_parallel,
-    global_rows,
-    world,
-)
+from podtpu_torch.parallel import layouts
+from podtpu_torch.parallel.mesh import all_reduce_sum, global_rows, stat_group
 
 REMAT_POLICIES = ("conv_out", "no_post_act")
 
@@ -144,16 +142,21 @@ def recompute_context():
         _local.recomputing = prev
 
 
-def fake_quant(x: torch.Tensor, dims: tuple[int, ...] | None = None
-               ) -> torch.Tensor:
+def fake_quant(x: torch.Tensor, dims: tuple[int, ...] | None = None,
+               group=None) -> torch.Tensor:
     """Symmetric int8 fake quantization with a straight-through estimator
     (``podtpu``'s ``_fake_quant``): the scale is the abs-max over the whole
-    tensor (``dims=None``, activations) or over ``dims`` (per output
-    channel of an OIHW kernel: ``(1, 2, 3)``) / 127, detached; the math
-    runs in float32 and returns ``x + detach(q(x) - x)`` in x's dtype."""
+    tensor (``dims=None``, activations; over ``group``'s ranks too, which
+    hold its other rows under the spatial layout) or over ``dims`` (per
+    output channel of an OIHW kernel: ``(1, 2, 3)``) / 127, detached; the
+    math runs in float32 and returns ``x + detach(q(x) - x)`` in x's
+    dtype."""
     x32 = x.float()
     a = x32.abs()
     absmax = a.amax() if dims is None else a.amax(dim=dims, keepdim=True)
+    if group is not None:
+        absmax = absmax.detach().clone()
+        dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
     # a 0-dim divisor: true division on the card as on the CPU
     scale = (torch.where(absmax > 0, absmax, 1.0)
              / absmax.new_full((), 127.0)).detach()
@@ -174,9 +177,21 @@ class BatchNormMixed(nn.Module):
     and ``podtpu`` update them. ``F.batch_norm`` is not used: it rounds
     at other places. Under data parallelism (more than one rank) the
     statistics are the global batch's, as under ``podtpu``'s mesh: the
-    per-channel sums are all-reduced (``parallel/mesh.py``), and the
-    running update takes the global count for Bessel's correction.
+    per-channel sums are all-reduced over ``data x space``
+    (``parallel/mesh.py::stat_group``), and the running update takes the
+    global count for Bessel's correction (each value counted once: a
+    whole map under the spatial layout is in every space peer's sums, and
+    its mean and variance are the same as counted once).
+
+    Under the tensor layout (``tp = (M, m)``, set with its block's) the
+    input holds channel slice ``m`` of ``M``: the statistics are the
+    slice's, the affine takes that slice of the whole ``weight`` / ``bias``
+    and of the running statistics, and the running update takes the
+    statistics of every slice (gathered over ``model``), so the buffers
+    stay whole on every rank.
     """
+
+    tp = None
 
     momentum = 0.9  # running-stat decay (torch's momentum 0.1)
 
@@ -201,6 +216,8 @@ class BatchNormMixed(nn.Module):
         (the buffers are then left alone)."""
         if getattr(_local, "recomputing", False):
             return
+        if self.tp is not None:
+            mean, var = (layouts.gather_vector(t) for t in (mean, var))
         bessel = n / max(n - 1, 1)
         if self.stats_sink is not None:
             self.stats_sink(mean, bessel * var)
@@ -218,27 +235,37 @@ class BatchNormMixed(nn.Module):
                     and x32 is not x:
                 remat.add(x32, x.float)
             n = x.numel() // x.shape[1]
-            if data_parallel():
+            group, ranks = stat_group()
+            if ranks > 1:
                 # the global batch's statistics: sum x and sum x^2 over
                 # every rank's rows (equal local batches), differentiated
                 # through the all-reduce
                 c = x.shape[1]
                 s = all_reduce_sum(torch.cat([x32.sum(dim=(0, 2, 3)),
-                                              (x32 * x32).sum(dim=(0, 2, 3))]))
-                n *= world()
+                                              (x32 * x32).sum(dim=(0, 2, 3))]),
+                                   group)
+                n *= ranks
                 mean = s[:c] / n
                 var = (s[c:] / n - mean * mean).clamp_min(0.0)
             else:
                 mean = x32.mean(dim=(0, 2, 3))
                 var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean
                        ).clamp_min(0.0)
-            self.update_running_stats(mean, var, n)
+            # Bessel's count: a whole map under the spatial layout came in
+            # once from each space peer
+            self.update_running_stats(mean, var, n // layouts.copies(x))
         else:
             mean, var = self.running_mean, self.running_var
-        inv = torch.rsqrt(var + self.eps) * self.weight
+        weight, bias = self.weight, self.bias
+        if self.tp is not None:
+            sl = layouts.channel_slice(self.tp, weight.shape[0])
+            weight, bias = weight[sl], bias[sl]
+            if not self.training:
+                mean, var = mean[sl], var[sl]
+        inv = torch.rsqrt(var + self.eps) * weight
         # y = (x - mean) * inv + bias, folded into one multiply-add
         mul = inv.to(self.dtype)[:, None, None]
-        add = (self.bias - mean * inv).to(self.dtype)[:, None, None]
+        add = (bias - mean * inv).to(self.dtype)[:, None, None]
         z = x.to(self.dtype) * mul + add
         if remat is not None:
             # what the enclosing block's recipes replay: c * mul + add
@@ -262,6 +289,12 @@ class ConvBnAct(nn.Module):
     fake-quantizes the input per tensor and the kernel per output channel
     (:func:`fake_quant`) before the conv; eval mode is untouched.
 
+    The layouts (``parallel/layouts.py``): a row block takes its window's
+    halo from its space peers; under the tensor layout (``tp = (M, m)``)
+    the block holds its output-channel slice of the kernel, computes that
+    slice from the whole input and returns the whole output, gathered over
+    ``model``.
+
     Serving-time int8 (``export/quantize.py``): a block given quant state
     (:meth:`set_quant`: ``w_int8`` OIHW int8, ``w_scale`` [O] and
     ``x_scale`` [] float32, registered as buffers only then, so a float
@@ -272,6 +305,7 @@ class ConvBnAct(nn.Module):
     activation."""
 
     QUANT_BUFFERS = ("w_int8", "w_scale", "x_scale")
+    tp = None
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
                  dtype: torch.dtype = torch.float32, strides: int = 1,
@@ -322,14 +356,22 @@ class ConvBnAct(nn.Module):
         return z.to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = layouts.enter_model(x)
         if self.quantized:
             x = self._int8_conv(x)
         else:
             w = self.conv.weight
             if self.qat and self.training:
-                x, w = fake_quant(x), fake_quant(w, dims=(1, 2, 3))
-            x = F.conv2d(x.to(self.dtype), w.to(self.dtype),
-                         stride=self.conv.stride, padding=self.conv.padding)
+                x = fake_quant(x, group=layouts.quant_group(x))
+                w = fake_quant(w, dims=(1, 2, 3))
+            x = layouts.conv2d(x.to(self.dtype), w.to(self.dtype),
+                               stride=self.conv.stride,
+                               padding=self.conv.padding)
+        y = self._bn_act(x)
+        return y if self.tp is None else layouts.gather_channels(y)
+
+    def _bn_act(self, x: torch.Tensor) -> torch.Tensor:
         z = self.bn(x)
         remat = getattr(_local, "remat", None) if self.training else None
         if remat is None:
@@ -370,11 +412,15 @@ class V4TinyBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv1(x)
-        return self.conv3(torch.cat([self.conv2(y), y], dim=1))
+        return self.conv3(cat_channels([self.conv2(y), y]))
 
 
 class HeadConv(nn.Module):
-    """The raw 1x1 prediction conv (bias-free); output is float32."""
+    """The raw 1x1 prediction conv (bias-free); output is float32, whole
+    (its rows gathered under the spatial layout, its channels under the
+    tensor layout)."""
+
+    tp = None
 
     def __init__(self, in_ch: int, features: int,
                  dtype: torch.dtype = torch.float32):
@@ -383,13 +429,29 @@ class HeadConv(nn.Module):
         self.conv = nn.Conv2d(in_ch, features, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x.to(self.dtype),
-                        self.conv.weight.to(self.dtype)).float()
+        if self.tp is not None:
+            x = layouts.enter_model(x)
+        y = F.conv2d(x.to(self.dtype), self.conv.weight.to(self.dtype)).float()
+        if self.tp is not None:
+            y = layouts.gather_channels(y)
+        return layouts.whole_rows(y)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """2x2/2 VALID max pool (floor division), NCHW."""
-    return F.max_pool2d(x, kernel_size=2, stride=2)
+    return layouts.max_pool2d(x, 2, 2)
+
+
+def cat_channels(ts) -> torch.Tensor:
+    """``torch.cat(ts, dim=1)``; under the spatial layout a row block meets
+    a whole map gathered whole."""
+    return torch.cat(layouts.match_rows(*ts), dim=1)
+
+
+def add_maps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a + b`` of two maps, in one row layout (as :func:`cat_channels`)."""
+    a, b = layouts.match_rows(a, b)
+    return a + b
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
@@ -404,7 +466,9 @@ def passthrough_reorg(x: torch.Tensor) -> torch.Tensor:
     buffer. The port's activations are NCHW tensors with channels_last
     strides, on which ``.view`` raises or reads another order, so this
     reshapes the logical NCHW shape (a copy, which is the semantics) and
-    returns it with channels_last strides again for the next conv."""
+    returns it with channels_last strides again for the next conv. It
+    mixes rows and channels, so it takes whole rows."""
+    x = layouts.whole_rows(x)
     b, c, h, w = x.shape
     x = x.reshape(b, c * 4, h // 2, w // 2)
     return x.contiguous(memory_format=torch.channels_last)

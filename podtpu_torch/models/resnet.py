@@ -13,10 +13,10 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from podtpu_torch.models.layers import ConvBnAct
+from podtpu_torch.models.layers import ConvBnAct, add_maps
+from podtpu_torch.parallel import layouts
 
 WIDTHS = (64, 128, 256, 512)
 
@@ -44,7 +44,7 @@ class Bottleneck(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv3(self.conv2(self.conv1(x)))
         residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(y + residual).to(self.dtype)
+        return torch.relu(add_maps(y, residual)).to(self.dtype)
 
 
 class ResNet(nn.Module):
@@ -69,7 +69,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         # pad 1 with -inf, as flax's max_pool pads
-        x = F.max_pool2d(self.stem(x), 3, stride=2, padding=1)
+        x = layouts.max_pool2d(self.stem(x), 3, 2, 1)
         feats = []
         for stage, n_blocks in enumerate(self.stage_sizes):
             for block in range(n_blocks):

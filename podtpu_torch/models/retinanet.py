@@ -18,12 +18,12 @@ import math
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from podtpu_torch.models.layers import upsample_nearest_2x
+from podtpu_torch.models.layers import add_maps, upsample_nearest_2x
 from podtpu_torch.models.resnet import resnet50
 from podtpu_torch.ops.retina import STRIDES
+from podtpu_torch.parallel import layouts
 
 PRIOR_PI = 0.01
 ANCHORS_PER_CELL = 9
@@ -32,7 +32,12 @@ ANCHORS_PER_CELL = 9
 class BiasedConv(nn.Conv2d):
     """A biased kxk conv with symmetric (k-1)//2 padding run in the compute
     dtype (input, weight and bias cast to it), as flax's
-    ``nn.Conv(dtype=..., param_dtype=float32)``."""
+    ``nn.Conv(dtype=..., param_dtype=float32)``. Under the layouts a row
+    block takes its window's halo, and a split conv (``tp``) computes its
+    output-channel slice with that slice of the whole ``bias``, gathered
+    whole over ``model``."""
+
+    tp = None
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
                  strides: int = 1, dtype: torch.dtype = torch.float32):
@@ -41,8 +46,13 @@ class BiasedConv(nn.Conv2d):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype), self.stride, self.padding)
+        bias = self.bias
+        if self.tp is not None:
+            x = layouts.enter_model(x)
+            bias = bias[layouts.channel_slice(self.tp, bias.shape[0])]
+        y = layouts.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
+                           bias.to(self.dtype), self.stride, self.padding)
+        return y if self.tp is None else layouts.gather_channels(y)
 
 
 class _Subnet(nn.Module):
@@ -61,7 +71,7 @@ class _Subnet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(4):
             x = torch.relu(getattr(self, f"conv{i}")(x))
-        return self.pred(x).float()
+        return layouts.whole_rows(self.pred(x).float())
 
 
 class RetinaNet(nn.Module):
@@ -89,8 +99,8 @@ class RetinaNet(nn.Module):
         c3, c4, c5 = self.backbone(x.permute(0, 3, 1, 2))
         # the top-down path adds the pre-smoothing P5 and P4
         p5 = self.lateral5(c5)
-        p4 = self.lateral4(c4) + upsample_nearest_2x(p5)
-        p3 = self.lateral3(c3) + upsample_nearest_2x(p4)
+        p4 = add_maps(self.lateral4(c4), upsample_nearest_2x(p5))
+        p3 = add_maps(self.lateral3(c3), upsample_nearest_2x(p4))
         p3, p4, p5 = self.smooth3(p3), self.smooth4(p4), self.smooth5(p5)
         p6 = self.p6(c5)
         p7 = self.p7(torch.relu(p6))

@@ -15,13 +15,16 @@ import torch
 
 from podtpu_torch.models.layers import ConvBnAct
 from podtpu_torch.ops.kernels.stem_kernel import stem_fused
-from podtpu_torch.parallel.mesh import world
+from podtpu_torch.parallel import layouts
+from podtpu_torch.parallel.mesh import stat_group
 
 
 def stem_fusable(x: torch.Tensor, training: bool, out_indices) -> bool:
     """The fused op covers exactly conv3x3(3 -> C) + 2x2/2 pool in train
     mode, with H a multiple of 8 and W even, and no consumer of the
-    pre-pool stage0 feature. x is NCHW. (QAT, which has no fused form, is
+    pre-pool stage0 feature. x is NCHW; under the spatial layout its H is
+    this rank's block of rows (208 at 416 px over 2 space ranks). (QAT,
+    which has no fused form, is
     excluded by the caller, ``models/darknet.py``, as in ``podtpu``.)"""
     return (
         training
@@ -38,15 +41,24 @@ def fused_stem_pool(block: ConvBnAct, x: torch.Tensor) -> torch.Tensor:
 
     x is NCHW (an NHWC batch permuted, so its memory is NHWC); the result
     is NCHW with channels_last strides. Updates the block's BN running
-    statistics as its own train-mode forward would."""
+    statistics as its own train-mode forward would. A block of the image's
+    rows (the spatial layout) takes one row from each neighbour block
+    (``parallel/layouts.py::halo``; zeros at the image's edges) and the
+    kernels compute its interior rows."""
     bn = block.bn
+    halo = layouts.row_sharded(x)
+    if halo:
+        x = layouts.halo(x, 1, 1)
     # NHWC; no copy when x's memory is NHWC, as the model's input is
     xh = x.to(block.dtype).permute(0, 2, 3, 1).contiguous()
     w = block.conv.weight.permute(2, 3, 1, 0)   # OIHW -> HWIO
     pooled, mean, var = stem_fused(xh, w, bn.weight, bn.bias, bn.eps,
-                                   block.dtype)
-    # the statistics are the global batch's under data parallelism
-    bn.update_running_stats(mean, var, xh.numel() // xh.shape[-1] * world())
+                                   block.dtype, halo)
+    # the statistics are the global batch's under data parallelism and
+    # the spatial layout
+    rows = xh.shape[1] - 2 * int(halo)
+    bn.update_running_stats(mean, var, xh.shape[0] * rows * xh.shape[2]
+                            * stat_group()[1])
     # The kernels take the ReLU as a max with 0, which maps a NaN to 0;
     # the plain version and podtpu carry it on. A NaN or inf input makes
     # the batch statistics non-finite, and this add makes the output NaN

@@ -13,11 +13,11 @@ dtype on float32 parameters, as ``nn.Dense(dtype=bf16, param_dtype=f32)``.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from podtpu_torch.models.darknet import Darknet19
 from podtpu_torch.models.layers import ConvBnAct, SeededDropout
+from podtpu_torch.parallel import layouts
 
 
 def _head_hw(size: int) -> int:
@@ -53,8 +53,8 @@ class YoloV1(nn.Module):
         x = self.backbone(x.permute(0, 3, 1, 2))[0]
         for i in range(5):
             x = getattr(self, f"head{i}")(x)
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # (h, w, c) order
+        # (h, w, c) order, of whole rows
+        x = layouts.whole_rows(x)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         x = self.dropout(x)
-        x = F.linear(x, self.fc.weight.to(self.dtype)) + self.fc.bias.to(
-            self.dtype)
-        return x.float()
+        return layouts.linear(self.fc, x, self.dtype).float()

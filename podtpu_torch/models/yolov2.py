@@ -15,7 +15,12 @@ import torch
 from torch import nn
 
 from podtpu_torch.models.darknet import Darknet19
-from podtpu_torch.models.layers import ConvBnAct, HeadConv, passthrough_reorg
+from podtpu_torch.models.layers import (
+    ConvBnAct,
+    HeadConv,
+    cat_channels,
+    passthrough_reorg,
+)
 
 
 class YoloV2(nn.Module):
@@ -36,5 +41,5 @@ class YoloV2(nn.Module):
         b4, b5 = self.backbone(x.permute(0, 3, 1, 2))
         b4 = passthrough_reorg(self.b4_layer(b4))
         b5 = self.b5_layer1(self.b5_layer0(b5))
-        x = self.head_conv(torch.cat([b4, b5], dim=1))  # 256 + 1024 ch
+        x = self.head_conv(cat_channels([b4, b5]))  # 256 + 1024 ch
         return self.head(x).permute(0, 2, 3, 1).contiguous()

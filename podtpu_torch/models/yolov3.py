@@ -13,7 +13,12 @@ import torch
 from torch import nn
 
 from podtpu_torch.models.darknet import Darknet19
-from podtpu_torch.models.layers import ConvBnAct, HeadConv, upsample_nearest_2x
+from podtpu_torch.models.layers import (
+    ConvBnAct,
+    HeadConv,
+    cat_channels,
+    upsample_nearest_2x,
+)
 
 
 class _ConvTriple(nn.Module):
@@ -71,11 +76,11 @@ class YoloV3(nn.Module):
         p5 = self.p5_head(c5)
 
         c5_route = upsample_nearest_2x(self.c5_route(c5))
-        c4 = self.c4_conv(torch.cat([c5_route, c4], dim=1))
+        c4 = self.c4_conv(cat_channels([c5_route, c4]))
         p4 = self.p4_head(c4)
 
         c4_route = upsample_nearest_2x(self.c4_route(c4))
-        c3 = self.c3_conv(torch.cat([c4_route, c3], dim=1))
+        c3 = self.c3_conv(cat_channels([c4_route, c3]))
         p3 = self.p3_head(c3)
 
         return tuple(p.permute(0, 2, 3, 1).contiguous() for p in (p3, p4, p5))

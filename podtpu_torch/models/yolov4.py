@@ -18,24 +18,25 @@ at strides 8/16/32, the contract of YOLOv3 and YOLOv4-tiny (loss
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from podtpu_torch.models.layers import (
     ConvBnAct,
     HeadConv,
     SeededDropout,
+    cat_channels,
     leaky01,
     mish,
     upsample_nearest_2x,
 )
+from podtpu_torch.parallel import layouts
 
 
 def _maxpool_same(x: torch.Tensor, k: int) -> torch.Tensor:
     """Stride-1 kxk max pool with symmetric padding k//2 (SPP's pools).
     torch pads a max pool with -inf, as flax does, so the output keeps the
     input's size however small the map."""
-    return F.max_pool2d(x, kernel_size=k, stride=1, padding=k // 2)
+    return layouts.max_pool2d(x, k, 1, k // 2)
 
 
 class _CSPRes(nn.Module):
@@ -75,7 +76,7 @@ class _CSPStage(nn.Module):
         for i in range(self.blocks):
             x = getattr(self, f"res{i}")(x)
         x = self.transition(x)
-        return self.merge(torch.cat([x, route], dim=1))
+        return self.merge(cat_channels([x, route]))
 
 
 class CSPDarknet53(nn.Module):
@@ -189,21 +190,21 @@ class YoloV4(nn.Module):
 
         # SPP sandwich on c5: trio -> pools 13/9/5 and the identity -> trio
         x5 = self.spp_pre(c5)
-        x5 = torch.cat([_maxpool_same(x5, 13), _maxpool_same(x5, 9),
-                        _maxpool_same(x5, 5), x5], dim=1)
+        x5 = cat_channels([_maxpool_same(x5, 13), _maxpool_same(x5, 9),
+                        _maxpool_same(x5, 5), x5])
         n5 = self.spp_post(x5)
 
         # top-down
         r5 = upsample_nearest_2x(self.td_route5(n5))
-        n4 = self.td_block4(torch.cat([self.td_lateral4(c4), r5], dim=1))
+        n4 = self.td_block4(cat_channels([self.td_lateral4(c4), r5]))
         r4 = upsample_nearest_2x(self.td_route4(n4))
-        n3 = self.td_block3(torch.cat([self.td_lateral3(c3), r4], dim=1))
+        n3 = self.td_block3(cat_channels([self.td_lateral3(c3), r4]))
 
         # bottom-up and the heads
         p3 = self.p3_pred(self.p3_expand(n3))
-        m4 = self.bu_block4(torch.cat([self.bu_down3(n3), n4], dim=1))
+        m4 = self.bu_block4(cat_channels([self.bu_down3(n3), n4]))
         p4 = self.p4_pred(self.p4_expand(m4))
-        m5 = self.bu_block5(torch.cat([self.bu_down4(m4), n5], dim=1))
+        m5 = self.bu_block5(cat_channels([self.bu_down4(m4), n5]))
         p5 = self.p5_pred(self.p5_expand(m5))
 
         return tuple(p.permute(0, 2, 3, 1).contiguous() for p in (p3, p4, p5))

@@ -19,6 +19,7 @@ from podtpu_torch.models.layers import (
     ConvBnAct,
     HeadConv,
     V4TinyBlock,
+    cat_channels,
     max_pool_2x2,
     upsample_nearest_2x,
 )
@@ -56,23 +57,23 @@ class YoloV4Tiny(nn.Module):
         # NHWC -> NCHW view with channels_last strides
         x = self.stem(x.permute(0, 3, 1, 2))
         y = self.layer1_1(self.layer1_0(x))
-        x = torch.cat([y, self.tiny_block1(y)], dim=1)
+        x = cat_channels([y, self.tiny_block1(y)])
 
         y = self.layer2(max_pool_2x2(x))
         b3 = self.tiny_block2(y)
-        x = torch.cat([y, b3], dim=1)
+        x = cat_channels([y, b3])
 
         y = self.layer3(max_pool_2x2(x))
         b4 = self.tiny_block3(y)
-        x = torch.cat([y, b4], dim=1)
+        x = cat_channels([y, b4])
 
         b5 = self.layer4_1(self.layer4_0(max_pool_2x2(x)))
 
         p5 = self.p5_pred(self.p5_expand(b5))
         b5_route = upsample_nearest_2x(self.b5_route(b5))
-        b4 = self.b4_conv(torch.cat([b5_route, b4], dim=1))
+        b4 = self.b4_conv(cat_channels([b5_route, b4]))
         p4 = self.p4_pred(b4)
         b4_route = upsample_nearest_2x(self.b4_route(b4))
-        p3 = self.p3_pred(self.p3_expand(torch.cat([b4_route, b3], dim=1)))
+        p3 = self.p3_pred(self.p3_expand(cat_channels([b4_route, b3])))
 
         return tuple(p.permute(0, 2, 3, 1).contiguous() for p in (p3, p4, p5))

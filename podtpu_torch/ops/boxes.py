@@ -51,6 +51,29 @@ def xyxy_to_cxcywh(boxes: torch.Tensor) -> torch.Tensor:
                        dim=-1)
 
 
+def xywhn_to_xyxy(boxes: torch.Tensor, w: float, h: float, padw: float = 0.0,
+                  padh: float = 0.0) -> torch.Tensor:
+    """Normalized cxcywh -> pixel xyxy, shifted by the letterbox padding
+    (utils/general.py:560-568 semantics)."""
+    cx, cy, bw, bh = boxes.unbind(-1)
+    return torch.stack([w * (cx - bw / 2.0) + padw,
+                        h * (cy - bh / 2.0) + padh,
+                        w * (cx + bw / 2.0) + padw,
+                        h * (cy + bh / 2.0) + padh], dim=-1)
+
+
+def xyxy_to_xywhn(boxes: torch.Tensor, w: float, h: float, clip: bool = False,
+                  eps: float = 0.0) -> torch.Tensor:
+    """Pixel xyxy -> normalized cxcywh (utils/general.py:571-581 semantics);
+    ``clip`` first clamps the corners into ``[0, w - eps] x [0, h - eps]``."""
+    if clip:
+        hi = boxes.new_tensor([w - eps, h - eps, w - eps, h - eps])
+        boxes = torch.minimum(torch.maximum(boxes, boxes.new_zeros(())), hi)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([(x1 + x2) / 2.0 / w, (y1 + y2) / 2.0 / h,
+                        (x2 - x1) / w, (y2 - y1) / h], dim=-1)
+
+
 def box_area(boxes_xyxy: torch.Tensor) -> torch.Tensor:
     return (boxes_xyxy[..., 2] - boxes_xyxy[..., 0]) * (
         boxes_xyxy[..., 3] - boxes_xyxy[..., 1])

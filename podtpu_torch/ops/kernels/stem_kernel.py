@@ -10,6 +10,14 @@ Layouts are ``podtpu``'s: x is NHWC ``[B, H, W, 3]`` in the compute dtype
 (bf16 or float32, the dtype of x), w is HWIO ``[3, 3, 3, 32]`` float32,
 pooled and its cotangent are NHWC ``[B, H/2, W/2, 32]``.
 
+With ``halo=True`` (a block of the image's rows under the spatial layout,
+``parallel/layouts.py``) x is ``[B, H + 2, W, 3]``: one row of the block
+above on top and one of the block below at the bottom, zeros where the
+block is at the image's edge. Every pass then computes the conv for the
+H interior rows only, reading its top and bottom taps from those rows in
+place of the zero padding; the pooled output and its cotangent are
+``[B, H/2, W/2, 32]`` as before, and dW sums over the interior rows.
+
 * :func:`stem_fused` — the entry point of the train step. A CUDA tensor goes
   to :class:`StemPoolFunction` (two kernels forward, two backward); a CPU
   tensor goes to :func:`stem_pool_reference_torch`. Its launches are counted
@@ -43,7 +51,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from podtpu_torch.parallel.mesh import data_parallel, world
+from podtpu_torch.parallel.mesh import stat_group
 
 CI, CO = 3, 32
 # rows of the kernels' partial-sum scratch: an upper bound on their grid
@@ -54,10 +62,10 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _FNS: dict = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "stats": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
-    "emit": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "bwd_sums": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
-    "bwd_dw": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    "stats": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "emit": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bwd_sums": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "bwd_dw": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -75,13 +83,15 @@ def _kernel(name: str):
 
 # ---- checks ---------------------------------------------------------------
 
-def _check_x(x: torch.Tensor):
+def _check_x(x: torch.Tensor, halo: bool = False):
     if x.dim() != 4 or x.shape[-1] != CI:
         raise ValueError(f"x must be NHWC [B, H, W, {CI}], got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if x.shape[1] % 2 or x.shape[2] % 2:
-        raise ValueError(f"H and W must be even, got {tuple(x.shape[1:3])}")
+    h = x.shape[1] - 2 * int(halo)
+    if h <= 0 or h % 2 or x.shape[2] % 2:
+        raise ValueError(f"H and W must be even, got {(h, x.shape[2])}"
+                         + (" inside the halo" if halo else ""))
 
 
 def _check_w(w: torch.Tensor):
@@ -97,8 +107,9 @@ def _check_vec(**vecs):
                              f"{v.dtype} {tuple(v.shape)}")
 
 
-def _check_g(g: torch.Tensor, x: torch.Tensor):
+def _check_g(g: torch.Tensor, x: torch.Tensor, halo: bool = False):
     b, h, w, _ = x.shape
+    h -= 2 * int(halo)
     if tuple(g.shape) != (b, h // 2, w // 2, CO) or g.dtype != x.dtype:
         raise ValueError(f"g must be {x.dtype} [{b}, {h // 2}, {w // 2}, {CO}]"
                          f", got {g.dtype} {tuple(g.shape)}")
@@ -117,10 +128,18 @@ def _check_cuda(name: str, *tensors: torch.Tensor):
 
 # ---- plain versions -------------------------------------------------------
 
-def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The compute-dtype conv: NHWC x, HWIO w -> NCHW (channels_last) pre."""
+def _pad(halo: bool):
+    """The conv's (rows, columns) of zero padding: none on the rows of a
+    block that brings its halo."""
+    return (0, 1) if halo else 1
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, halo: bool = False
+          ) -> torch.Tensor:
+    """The compute-dtype conv: NHWC x, HWIO w -> NCHW (channels_last) pre
+    (of the interior rows with ``halo``)."""
     return F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
-                    padding=1)
+                    padding=_pad(halo))
 
 
 def _affine(pre, mul, add):
@@ -152,86 +171,94 @@ def _xhat(pre, mean, rinv):
     return (pre.float() - mean[:, None, None]) * rinv[:, None, None]
 
 
-def stem_stats_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def stem_stats_reference(x: torch.Tensor, w: torch.Tensor,
+                         halo: bool = False) -> torch.Tensor:
     """[2, 32] float32: (sum pre, sum pre^2) per channel."""
-    p = _conv(x, w).float()
+    p = _conv(x, w, halo).float()
     return torch.stack([p.sum(dim=(0, 2, 3)), (p * p).sum(dim=(0, 2, 3))])
 
 
-def stem_emit_reference(x, w, mul, add) -> torch.Tensor:
+def stem_emit_reference(x, w, mul, add, halo: bool = False) -> torch.Tensor:
     """NHWC pooled ``maxpool(relu(pre * mul + add))`` in the compute dtype."""
-    z = torch.relu(_affine(_conv(x, w), mul, add))
+    z = torch.relu(_affine(_conv(x, w, halo), mul, add))
     return F.max_pool2d(z, 2, 2).permute(0, 2, 3, 1)
 
 
-def stem_bwd_sums_reference(x, w, mul, add, mean, rinv, g) -> torch.Tensor:
+def stem_bwd_sums_reference(x, w, mul, add, mean, rinv, g,
+                            halo: bool = False) -> torch.Tensor:
     """[2, 32] float32: (sum d, sum d * xhat) per channel."""
-    pre = _conv(x, w)
+    pre = _conv(x, w, halo)
     d = _routed(_affine(pre, mul, add), g)
     return torch.stack([d.sum(dim=(0, 2, 3)),
                         (d * _xhat(pre, mean, rinv)).sum(dim=(0, 2, 3))])
 
 
-def stem_bwd_dw_reference(x, w, mul, add, mean, rinv, inv, c0, c1, g
-                          ) -> torch.Tensor:
+def stem_bwd_dw_reference(x, w, mul, add, mean, rinv, inv, c0, c1, g,
+                          halo: bool = False) -> torch.Tensor:
     """HWIO [3, 3, 3, 32] float32: sum over pixels of x-patch (x) d_pre,
     d_pre = inv * (d - c0 - xhat * c1) rounded to the compute dtype."""
-    pre = _conv(x, w)
+    pre = _conv(x, w, halo)
     d = _routed(_affine(pre, mul, add), g)
     v = lambda t: t[:, None, None]  # noqa: E731
     dpre = (v(inv) * (d - v(c0) - _xhat(pre, mean, rinv) * v(c1))).to(x.dtype)
     dw = torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2).float(),
-                                     (CO, CI, 3, 3), dpre.float(), padding=1)
+                                     (CO, CI, 3, 3), dpre.float(),
+                                     padding=_pad(halo))
     return dw.permute(2, 3, 1, 0).contiguous()
 
 
-def _im2col(x: torch.Tensor) -> torch.Tensor:
-    """[B * H * W, 32]: the 3x3 patch of every pixel with zero padding, taps
-    in (ky, kx, ci) order, and 5 zero columns after the 27 taps."""
+def _im2col(x: torch.Tensor, halo: bool = False) -> torch.Tensor:
+    """[B * H * W, 32]: the 3x3 patch of every (interior) pixel with zero
+    padding, taps in (ky, kx, ci) order, and 5 zero columns after the 27
+    taps."""
     b, h, w, _ = x.shape
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    h -= 2 * int(halo)
+    xp = F.pad(x, (0, 0, 1, 1, 0 if halo else 1, 0 if halo else 1))
     cols = [xp[:, ky:ky + h, kx:kx + w, :] for ky in range(3)
             for kx in range(3)]
     cols.append(x.new_zeros((b, h, w, 32 - 9 * CI)))
     return torch.cat(cols, dim=-1).reshape(b * h * w, 32)
 
 
-def _im2col_pre(x, w):
+def _im2col_pre(x, w, halo: bool = False):
     """(im2col, pre NCHW): the conv as one float32 product of the im2col
     matrix with the [32, 32] weights (5 zero rows), rounded once."""
     b, h, wd, _ = x.shape
-    col = _im2col(x)
+    h -= 2 * int(halo)
+    col = _im2col(x, halo)
     w32 = torch.cat([w.to(x.dtype).reshape(9 * CI, CO),
                      w.new_zeros((32 - 9 * CI, CO), dtype=x.dtype)])
     pre = (col.float() @ w32.float()).to(x.dtype)
     return col, pre.reshape(b, h, wd, CO).permute(0, 3, 1, 2)
 
 
-def stem_stats_im2col(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def stem_stats_im2col(x: torch.Tensor, w: torch.Tensor,
+                      halo: bool = False) -> torch.Tensor:
     """:func:`stem_stats_reference` with the conv as an im2col product."""
-    p = _im2col_pre(x, w)[1].float()
+    p = _im2col_pre(x, w, halo)[1].float()
     return torch.stack([p.sum(dim=(0, 2, 3)), (p * p).sum(dim=(0, 2, 3))])
 
 
-def stem_emit_im2col(x, w, mul, add) -> torch.Tensor:
+def stem_emit_im2col(x, w, mul, add, halo: bool = False) -> torch.Tensor:
     """:func:`stem_emit_reference` with the conv as an im2col product."""
-    z = torch.relu(_affine(_im2col_pre(x, w)[1], mul, add))
+    z = torch.relu(_affine(_im2col_pre(x, w, halo)[1], mul, add))
     return F.max_pool2d(z, 2, 2).permute(0, 2, 3, 1)
 
 
-def stem_bwd_sums_im2col(x, w, mul, add, mean, rinv, g) -> torch.Tensor:
+def stem_bwd_sums_im2col(x, w, mul, add, mean, rinv, g,
+                         halo: bool = False) -> torch.Tensor:
     """:func:`stem_bwd_sums_reference` with the conv as an im2col product."""
-    _, pre = _im2col_pre(x, w)
+    _, pre = _im2col_pre(x, w, halo)
     d = _routed(_affine(pre, mul, add), g)
     return torch.stack([d.sum(dim=(0, 2, 3)),
                         (d * _xhat(pre, mean, rinv)).sum(dim=(0, 2, 3))])
 
 
-def stem_bwd_dw_im2col(x, w, mul, add, mean, rinv, inv, c0, c1, g
-                       ) -> torch.Tensor:
+def stem_bwd_dw_im2col(x, w, mul, add, mean, rinv, inv, c0, c1, g,
+                       halo: bool = False) -> torch.Tensor:
     """:func:`stem_bwd_dw_reference` as two products: the conv, and
     dW = im2col^T @ d_pre in float32 with the zero tap columns dropped."""
-    col, pre = _im2col_pre(x, w)
+    col, pre = _im2col_pre(x, w, halo)
     d = _routed(_affine(pre, mul, add), g)
     v = lambda t: t[:, None, None]  # noqa: E731
     dpre = (v(inv) * (d - v(c0) - _xhat(pre, mean, rinv) * v(c1))).to(x.dtype)
@@ -240,12 +267,13 @@ def stem_bwd_dw_im2col(x, w, mul, add, mean, rinv, inv, c0, c1, g
 
 
 def stem_pool_reference_torch(x, w, scale, bias, eps: float,
-                              dtype: torch.dtype):
+                              dtype: torch.dtype, halo: bool = False):
     """Plain ConvBnAct(32, 3) + max_pool_2x2 in train mode.
 
     x NHWC (any float dtype), w HWIO float32 -> (pooled NHWC in ``dtype``,
-    batch mean, batch variance). Differentiable by autograd."""
-    pre = _conv(x.to(dtype), w)
+    batch mean, batch variance), of the interior rows with ``halo`` (the
+    statistics then this block's alone). Differentiable by autograd."""
+    pre = _conv(x.to(dtype), w, halo)
     p32 = pre.float()
     mean = p32.mean(dim=(0, 2, 3))
     var = ((p32 * p32).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
@@ -277,8 +305,9 @@ def _check_aligned(name: str, *tensors: torch.Tensor):
                          f"must be 16-byte aligned")
 
 
-def _launch_stats(x, w) -> torch.Tensor:
+def _launch_stats(x, w, halo: bool) -> torch.Tensor:
     b, h, wd, _ = x.shape
+    h -= 2 * int(halo)
     _check_aligned("stats", x)
     partials = torch.empty((MAX_BLOCKS, 2 * CO), dtype=torch.float32,
                            device=x.device)
@@ -288,14 +317,15 @@ def _launch_stats(x, w) -> torch.Tensor:
         err = _kernel("stats")(x.data_ptr(), wk.data_ptr(),
                                partials.data_ptr(), MAX_BLOCKS, out.data_ptr(),
                                b, h, wd, int(x.dtype == torch.bfloat16),
-                               _stream(x))
+                               int(halo), _stream(x))
     _raise_on(err, "stats")
     stem_fused.launches["stats"] += 1
     return out
 
 
-def _launch_emit(x, w, mul, add) -> torch.Tensor:
+def _launch_emit(x, w, mul, add, halo: bool) -> torch.Tensor:
     b, h, wd, _ = x.shape
+    h -= 2 * int(halo)
     out = torch.empty((b, h // 2, wd // 2, CO), dtype=x.dtype, device=x.device)
     _check_aligned("emit", x, out)
     wk = _wk(w, x.dtype)
@@ -303,14 +333,16 @@ def _launch_emit(x, w, mul, add) -> torch.Tensor:
     with torch.cuda.device(x.device):
         err = _kernel("emit")(x.data_ptr(), wk.data_ptr(), vec.data_ptr(),
                               out.data_ptr(), b, h, wd,
-                              int(x.dtype == torch.bfloat16), _stream(x))
+                              int(x.dtype == torch.bfloat16), int(halo),
+                              _stream(x))
     _raise_on(err, "emit")
     stem_fused.launches["emit"] += 1
     return out
 
 
-def _launch_bwd(name, x, w, vec, g, cols) -> torch.Tensor:
+def _launch_bwd(name, x, w, vec, g, cols, halo: bool) -> torch.Tensor:
     b, h, wd, _ = x.shape
+    h -= 2 * int(halo)
     _check_aligned(name, x, g)
     partials = torch.empty((MAX_BLOCKS, cols), dtype=torch.float32,
                            device=x.device)
@@ -320,7 +352,8 @@ def _launch_bwd(name, x, w, vec, g, cols) -> torch.Tensor:
         err = _kernel(name)(x.data_ptr(), wk.data_ptr(), vec.data_ptr(),
                             g.data_ptr(), partials.data_ptr(), MAX_BLOCKS,
                             out.data_ptr(), b, h, wd,
-                            int(x.dtype == torch.bfloat16), _stream(x))
+                            int(x.dtype == torch.bfloat16), int(halo),
+                            _stream(x))
     _raise_on(err, name)
     stem_fused.launches[name] += 1
     return out
@@ -338,53 +371,58 @@ def _vec7(mul, add, mean, rinv, inv=None, c0=None, c1=None):
 
 # ---- the four kernel wrappers ---------------------------------------------
 
-def stem_stats(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def stem_stats(x: torch.Tensor, w: torch.Tensor,
+               halo: bool = False) -> torch.Tensor:
     """(sum pre, sum pre^2) per channel, [2, 32] float32."""
-    _check_x(x)
+    _check_x(x, halo)
     _check_w(w)
     if x.device.type == "cpu":
-        return stem_stats_reference(x, w)
+        return stem_stats_reference(x, w, halo)
     _check_cuda("stem_stats", x, w)
-    return _launch_stats(x, w)
+    return _launch_stats(x, w, halo)
 
 
-def stem_emit(x, w, mul, add) -> torch.Tensor:
+def stem_emit(x, w, mul, add, halo: bool = False) -> torch.Tensor:
     """NHWC pooled output in x's dtype; mul, add float32 [32] holding
     compute-dtype values."""
-    _check_x(x)
+    _check_x(x, halo)
     _check_w(w)
     _check_vec(mul=mul, add=add)
     if x.device.type == "cpu":
-        return stem_emit_reference(x, w, mul, add)
+        return stem_emit_reference(x, w, mul, add, halo)
     _check_cuda("stem_emit", x, w, mul, add)
-    return _launch_emit(x, w, mul, add)
+    return _launch_emit(x, w, mul, add, halo)
 
 
-def stem_bwd_sums(x, w, mul, add, mean, rinv, g) -> torch.Tensor:
+def stem_bwd_sums(x, w, mul, add, mean, rinv, g, halo: bool = False
+                  ) -> torch.Tensor:
     """(sum d, sum d * xhat) per channel, [2, 32] float32."""
-    _check_x(x)
+    _check_x(x, halo)
     _check_w(w)
     _check_vec(mul=mul, add=add, mean=mean, rinv=rinv)
-    _check_g(g, x)
+    _check_g(g, x, halo)
     if x.device.type == "cpu":
-        return stem_bwd_sums_reference(x, w, mul, add, mean, rinv, g)
+        return stem_bwd_sums_reference(x, w, mul, add, mean, rinv, g, halo)
     _check_cuda("stem_bwd_sums", x, w, mul, add, mean, rinv, g)
     vec = _vec7(mul, add, mean, rinv)
-    return _launch_bwd("bwd_sums", x, w, vec, g, 2 * CO).view(2, CO)
+    return _launch_bwd("bwd_sums", x, w, vec, g, 2 * CO, halo).view(2, CO)
 
 
-def stem_bwd_dw(x, w, mul, add, mean, rinv, inv, c0, c1, g) -> torch.Tensor:
-    """dW, HWIO [3, 3, 3, 32] float32."""
-    _check_x(x)
+def stem_bwd_dw(x, w, mul, add, mean, rinv, inv, c0, c1, g,
+                halo: bool = False) -> torch.Tensor:
+    """dW, HWIO [3, 3, 3, 32] float32 (over the interior rows with
+    ``halo``)."""
+    _check_x(x, halo)
     _check_w(w)
     _check_vec(mul=mul, add=add, mean=mean, rinv=rinv, inv=inv, c0=c0, c1=c1)
-    _check_g(g, x)
+    _check_g(g, x, halo)
     if x.device.type == "cpu":
         return stem_bwd_dw_reference(x, w, mul, add, mean, rinv, inv, c0, c1,
-                                     g)
+                                     g, halo)
     _check_cuda("stem_bwd_dw", x, w, mul, add, mean, rinv, inv, c0, c1, g)
     vec = _vec7(mul, add, mean, rinv, inv, c0, c1)
-    return _launch_bwd("bwd_dw", x, w, vec, g, 9 * CI * CO).view(3, 3, CI, CO)
+    return _launch_bwd("bwd_dw", x, w, vec, g, 9 * CI * CO,
+                       halo).view(3, 3, CI, CO)
 
 
 # ---- the op ---------------------------------------------------------------
@@ -399,29 +437,33 @@ class StemPoolFunction(torch.autograd.Function):
     gradient (the stem is the first layer), and mean and var are outputs
     for the running statistics only.
 
-    Under data parallelism (``parallel/mesh.py``) the stats kernel's sums
-    are all-reduced before ``mean`` / ``var``, with ``n`` the global count,
-    and a copy of the backward sums before ``c0`` / ``c1``; the gradients
-    returned are this rank's shares, which the train step's gradient
-    reduction adds up."""
+    Under data parallelism and the spatial layout (``parallel/mesh.py``)
+    the stats kernel's sums are all-reduced over ``data x space``
+    (``stat_group``) before ``mean`` / ``var``, with ``n`` the global count
+    of pixels, and a copy of the backward sums before ``c0`` / ``c1``. The
+    gradients returned are this rank's shares: with ``halo`` (a block of
+    rows with its neighbours' edge rows) dW, dscale and dbias sum over
+    the block's interior rows, and the train step's average over ``data x
+    space`` adds the space ranks' shares up."""
 
     @staticmethod
-    def forward(ctx, x, w, scale, bias, eps):
+    def forward(ctx, x, w, scale, bias, eps, halo=False):
         b, h, wd, _ = x.shape
-        n = b * h * wd * world()
-        s = stem_stats(x, w)
-        if data_parallel():
-            # the global batch's sums (every rank's rows, equal batches)
-            dist.all_reduce(s)
+        group, ranks = stat_group()
+        n = b * (h - 2 * int(halo)) * wd * ranks
+        s = stem_stats(x, w, halo)
+        if ranks > 1:
+            # the global batch's sums (every rank's pixels, equal blocks)
+            dist.all_reduce(s, group=group)
         mean = s[0] / n
         var = (s[1] / n - mean * mean).clamp_min(0.0)
         inv = torch.rsqrt(var + eps) * scale
         mul = inv.to(x.dtype).float()
         add = (bias - mean * inv).to(x.dtype).float()
-        pooled = stem_emit(x, w, mul, add)
+        pooled = stem_emit(x, w, mul, add, halo)
         ctx.mark_non_differentiable(mean, var)
         ctx.save_for_backward(x, w, mul, add, mean, var, inv)
-        ctx.eps, ctx.n = eps, n
+        ctx.eps, ctx.n, ctx.halo, ctx.group = eps, n, halo, group
         return pooled, mean, var
 
     @staticmethod
@@ -429,32 +471,35 @@ class StemPoolFunction(torch.autograd.Function):
         x, w, mul, add, mean, var, inv = ctx.saved_tensors
         g = gp.to(x.dtype).contiguous()
         rinv = torch.rsqrt(var + ctx.eps)
-        sums = stem_bwd_sums(x, w, mul, add, mean, rinv, g)
+        sums = stem_bwd_sums(x, w, mul, add, mean, rinv, g, ctx.halo)
         # this rank's sums are its share of dbias and dscale (the gradient
         # reduction adds the shares); d_pre takes the global sums
         dbias, dscale = sums[0], sums[1]
         total = sums
-        if data_parallel():
+        if stat_group()[1] > 1:
             total = sums.clone()
-            dist.all_reduce(total)
+            dist.all_reduce(total, group=ctx.group)
         dw = stem_bwd_dw(x, w, mul, add, mean, rinv, inv, total[0] / ctx.n,
-                         total[1] / ctx.n, g)
-        return None, dw, dscale, dbias, None
+                         total[1] / ctx.n, g, ctx.halo)
+        return None, dw, dscale, dbias, None, None
 
 
-def stem_fused(x, w, scale, bias, eps: float, dtype: torch.dtype):
+def stem_fused(x, w, scale, bias, eps: float, dtype: torch.dtype,
+               halo: bool = False):
     """conv3x3 + train-mode BN + ReLU + 2x2 max pool.
 
-    x NHWC ``[B, H, W, 3]`` (cast to ``dtype``), w HWIO float32, scale and
-    bias float32 [32] -> (pooled NHWC ``[B, H/2, W/2, 32]`` in ``dtype``,
-    batch mean, batch variance). CUDA: the kernels; CPU: the plain version
-    of the whole op, or under data parallelism the plain versions of the
-    four passes through :class:`StemPoolFunction`, with its all-reduces.
+    x NHWC ``[B, H, W, 3]`` (cast to ``dtype``; ``[B, H + 2, W, 3]`` with
+    ``halo``), w HWIO float32, scale and bias float32 [32] -> (pooled NHWC
+    ``[B, H/2, W/2, 32]`` in ``dtype``, batch mean, batch variance). CUDA:
+    the kernels; CPU: the plain version of the whole op, or under a group
+    of statistics (data parallelism, the spatial layout) the plain
+    versions of the four passes through :class:`StemPoolFunction`, with
+    its all-reduces.
     """
-    if x.device.type == "cpu" and not data_parallel():
-        return stem_pool_reference_torch(x, w, scale, bias, eps, dtype)
+    if x.device.type == "cpu" and stat_group()[1] == 1:
+        return stem_pool_reference_torch(x, w, scale, bias, eps, dtype, halo)
     return StemPoolFunction.apply(x.to(dtype), w.contiguous(), scale, bias,
-                                  eps)
+                                  eps, halo)
 
 
 stem_fused.launches = {"stats": 0, "emit": 0, "bwd_sums": 0, "bwd_dw": 0}

@@ -22,7 +22,7 @@ import torch.distributed as dist
 
 from podtpu_torch.losses.focal import focal_loss
 from podtpu_torch.ops.boxes import WH_CLAMP
-from podtpu_torch.parallel.mesh import data_parallel, world
+from podtpu_torch.parallel.mesh import data_group, world
 
 OCTAVES = (0.0, 1.0 / 3.0, 2.0 / 3.0)
 RATIOS = (0.5, 1.0, 2.0)
@@ -179,15 +179,16 @@ def retinanet_loss(outputs, target: torch.Tensor, num_classes: int,
     sl1 = torch.where(diff < 1.0 / 9.0, 4.5 * diff ** 2, diff - 1.0 / 18.0)
     box_loss = (sl1 * pos[..., None]).sum() * box_weight
 
-    if not data_parallel():
+    if world() == 1:
         num_pos = pos.sum().clamp_min(1.0)
         return (cls_loss + box_loss) / num_pos
-    # podtpu divides by the global batch's positives: summed over the ranks
-    # (no gradient through it), and the rank's loss scaled by the ranks, so
-    # that its mean over them (what the train step's averaged gradients
-    # and ``validate`` take) is the global loss
+    # podtpu divides by the global batch's positives: summed over the data
+    # ranks (no gradient through it; space and model peers hold the same
+    # rows), and the rank's loss scaled by the ranks, so that its mean over
+    # them (what the train step's averaged gradients and ``validate`` take)
+    # is the global loss
     num_pos = pos.sum().detach().clone()
-    dist.all_reduce(num_pos)
+    dist.all_reduce(num_pos, group=data_group())
     return (cls_loss + box_loss) * float(world()) / num_pos.clamp_min(1.0)
 
 

@@ -1,16 +1,20 @@
 """A multi-process dry run of the train and eval steps
 (``__graft_entry__.py::dryrun_multichip``):
 
-    python -m podtpu_torch.parallel.dryrun --nproc 2 [--device cuda|cpu]
+    python -m podtpu_torch.parallel.dryrun --nproc 4 [--device cuda|cpu]
 
 spawns ``--nproc`` ranks that meet over ``gloo`` through a file store
-(sharing the cards, by default, or on the CPU with ``--device cpu``), and on each runs YOLOv3 at 64 px
-float32 with ``device_augment``, ``device_geom``, ``ema`` and hflip +
-scale TTA, one image a rank: one data-parallel train step; then under
-FSDP, where at least 10 parameter leaves must be sharded, one step (its
-loss equal to the data-parallel one, its updated weights in agreement), a
-K=2 group (``steps_per_dispatch``) and the eval step on the whole
-weights. Exits non-zero if a rank fails or hangs.
+(sharing the cards, by default, or on the CPU with ``--device cpu``), and
+on each runs YOLOv3 at 64 px float32 with ``device_augment``,
+``device_geom``, ``ema`` and hflip + scale TTA on a global batch of one
+image a rank: one data-parallel train step; then under FSDP, where at
+least 10 parameter leaves must be sharded, one step (its loss equal to
+the data-parallel one, its updated weights in agreement); then, as
+``dryrun_multichip`` picks them, the layouts: ``--nproc`` >= 4 (even)
+adds spatial 2 with FSDP, >= 8 (a multiple of 4) tensor 2 as well, one
+step held to the data-parallel one likewise; then a K=2 group
+(``steps_per_dispatch``) and the eval step on the whole weights. Exits
+non-zero if a rank fails or hangs.
 """
 
 from __future__ import annotations
@@ -62,10 +66,17 @@ def global_batch(n: int, size: int, max_annots: int) -> dict:
     return {"img": imgs, "annot": annot, "geom": geom}
 
 
+def layouts_for(nproc: int) -> tuple[int, int, bool]:
+    """(spatial, tensor, fsdp) as ``__graft_entry__.py::dryrun_multichip``
+    picks them for ``nproc`` devices."""
+    spatial = 2 if (nproc >= 4 and nproc % 2 == 0) else 1
+    tensor = 2 if (nproc >= 8 and nproc % 4 == 0) else 1
+    return spatial, tensor, spatial > 1
+
+
 def run_checks(dev: torch.device) -> dict:
     """The dry run on this rank of a joined group: returns its numbers,
     raising on a failed check."""
-    from podtpu_torch.export.weights import flat_from_state_dict
     from podtpu_torch.models.factory import build_model
     from podtpu_torch.train.state import create_train_state
     from podtpu_torch.train.steps import (
@@ -73,18 +84,24 @@ def run_checks(dev: torch.device) -> dict:
         make_multi_train_step,
         make_train_step,
     )
+    from podtpu_torch.train.trainer import whole_payload
 
     cfg = flagship_cfg()
-    host = global_batch(mesh.world(), cfg["input_size"], cfg["max_annots"])
-    batch = {k: torch.from_numpy(v).to(dev)
-             for k, v in mesh.shard_batch(host).items()}
-    out = {}
-    for layout in ("dp", "fsdp"):
+    n = torch.distributed.get_world_size()
+    host = global_batch(n, cfg["input_size"], cfg["max_annots"])
+    spatial, tensor, fsdp = layouts_for(n)
+    runs = [("dp", 1, 1, False), ("fsdp", 1, 1, True)]
+    if spatial * tensor > 1:
+        runs.append(("layout", spatial, tensor, fsdp))
+    out = {"layout": (n // (spatial * tensor), spatial, tensor)}
+    for layout, s, t, f in runs:
+        grid = mesh.make_mesh(dev.type, s, t)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in mesh.shard_batch(host).items()}
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg["seed"])
-            state = create_train_state(
-                cfg, dev, fsdp_mesh=mesh.make_mesh(dev.type)
-                if layout == "fsdp" else None)
+            state = create_train_state(cfg, dev,
+                                       fsdp_mesh=grid if f else None)
         if layout == "fsdp":
             out["fsdp_sharded_leaves"] = mesh.sharded_leaves(state.model)
             if out["fsdp_sharded_leaves"] < 10:
@@ -94,8 +111,13 @@ def run_checks(dev: torch.device) -> dict:
         loss = float(metrics["loss"])
         if not np.isfinite(loss):
             raise AssertionError(f"{layout}: non-finite loss {loss}")
-        out[f"{layout}_loss"] = loss
-        out[f"{layout}_weights"] = flat_from_state_dict(state.model)
+        # the global batch's loss: the mean of the data ranks'
+        out[f"{layout}_loss"] = mesh.mean_over_ranks(loss)
+        whole = whole_payload(state, {"model": mesh.full_tree(
+            state.model.state_dict())})["model"]
+        # copies: the K=2 group below moves the last run's statistics
+        out[f"{layout}_weights"] = {k: v.detach().cpu().numpy().copy()
+                                    for k, v in whole.items()}
     stacked = {k: torch.from_numpy(v).to(dev) for k, v in
                mesh.shard_stacked_batch({k: np.stack([a] * 2)
                                          for k, a in host.items()}).items()}
@@ -107,7 +129,8 @@ def run_checks(dev: torch.device) -> dict:
     # the eval step on the whole weights (a plain model holding them, as
     # Trainer.validate evaluates under FSDP)
     model = build_model(cfg, dev, train=True)
-    mesh.load_full_state(model, mesh.full_tree(state.model.state_dict()))
+    model.load_state_dict(whole_payload(state, {"model": mesh.full_tree(
+        state.model.state_dict())})["model"])
     state.model = model
     val_loss, dets, valid = make_eval_step(cfg)(
         state, {"img": batch["img"], "annot": batch["annot"]})
@@ -115,16 +138,18 @@ def run_checks(dev: torch.device) -> dict:
             batch["img"]):
         raise AssertionError("the eval step failed")
     out["val_loss"] = float(val_loss)
-    if abs(out["fsdp_loss"] - out["dp_loss"]) > 1e-5 * abs(out["dp_loss"]):
-        raise AssertionError(f"FSDP loss {out['fsdp_loss']} against DP "
-                             f"{out['dp_loss']}")
-    worst = max(float(np.abs(out["fsdp_weights"][k] - w).max()
-                      / max(1.0, float(np.abs(w).max())))
-                for k, w in out["dp_weights"].items())
-    if worst > 1e-5:
-        raise AssertionError(f"FSDP's updated weights differ from DP's by "
-                             f"{worst} of their scale")
-    out["fsdp_vs_dp"] = worst
+    for layout, *_ in runs[1:]:
+        if abs(out[f"{layout}_loss"] - out["dp_loss"]) > 1e-5 * abs(
+                out["dp_loss"]):
+            raise AssertionError(f"{layout} loss {out[f'{layout}_loss']} "
+                                 f"against DP {out['dp_loss']}")
+        worst = max(float(np.abs(out[f"{layout}_weights"][k] - w).max()
+                          / max(1.0, float(np.abs(w).max())))
+                    for k, w in out["dp_weights"].items())
+        if worst > 1e-5:
+            raise AssertionError(f"{layout}'s updated weights differ from "
+                                 f"DP's by {worst} of their scale")
+        out[f"{layout}_vs_dp"] = worst
     return out
 
 
@@ -154,9 +179,11 @@ def _rank_main(argv):
         out = run_checks(dev)
     finally:
         mesh.shutdown()
+    extra = (f" (data, space, model)={out['layout']} "
+             f"loss={out['layout_loss']:.6f}" if "layout_loss" in out else "")
     print(f"dryrun rank {args.rank}/{args.world} on {dev}: "
           f"dp loss={out['dp_loss']:.6f} fsdp loss={out['fsdp_loss']:.6f} "
-          f"sharded leaves={out['fsdp_sharded_leaves']} "
+          f"sharded leaves={out['fsdp_sharded_leaves']}{extra} "
           f"val_loss={out['val_loss']:.6f} OK", flush=True)
 
 

@@ -65,8 +65,8 @@ def skip_nonfinite(cfg: dict) -> int:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float
-                         ) -> torch.Tensor:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         split: list[bool] | None = None) -> torch.Tensor:
     """Clip ``grads`` in place as ``optax.clip_by_global_norm`` does:
     ``g`` where the global norm is below ``max_norm``, else
     ``(g / norm) * max_norm``, chosen on the device (no host sync).
@@ -78,11 +78,25 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float
 
     Under FSDP the gradients are DTensor shards: the squares of the
     shards' norms are summed over the ranks (the global norm to float32
-    rounding), and each rank scales its shards."""
+    rounding), and each rank scales its shards. Under the tensor layout
+    ``split`` marks the gradients of split kernels, each rank's holding
+    its channel block: their squares are summed over ``model`` too, while
+    the whole leaves' count once."""
     sharded = any(is_dtensor(g) for g in grads)
     grads = local_tensors(grads)
     norms = torch.stack(torch._foreach_norm(grads))
-    if sharded:
+    if split is not None and any(split):
+        from podtpu_torch.parallel.mesh import model_group, stat_group
+
+        mask = torch.tensor(split, device=norms.device)
+        whole, blocks = (norms[~mask].square().sum(),
+                         norms[mask].square().sum())
+        if sharded:
+            for t in (whole, blocks):
+                dist.all_reduce(t, group=stat_group()[0])
+        dist.all_reduce(blocks, group=model_group())
+        norm = (whole + blocks).sqrt()
+    elif sharded:
         sq = norms.square().sum()
         dist.all_reduce(sq)
         norm = sq.sqrt()
@@ -172,6 +186,10 @@ def build_optimizer(cfg: dict, model: nn.Module) -> torch.optim.Optimizer:
             raise ValueError("optimizer_options.flat views every parameter "
                              "in one buffer; FSDP shards them: use one or "
                              "the other")
+        if getattr(model, "tp_keys", None):
+            raise ValueError("optimizer_options.flat views every parameter "
+                             "in one buffer; the tensor layout splits "
+                             "kernels over ranks: use one or the other")
         flat = FlatParams(groups)
         groups = [[t] for t in flat.groups]
     decays = [wd, 0.0][:len(groups)]

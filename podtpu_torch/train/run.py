@@ -8,17 +8,19 @@ validates every ``check_val_every_n_epoch`` epochs and keeps ``best`` on
 the lowest ``val_loss``. Runs on ``cuda`` unless ``--device`` says
 otherwise.
 
-Several processes (data parallelism; FSDP with cfg
-``parallel_options.fsdp``), one a card:
+Several processes (data parallelism; the spatial and tensor layouts and
+FSDP with cfg ``parallel_options.spatial`` / ``.tensor`` / ``.fsdp``), one
+a card:
 
     python -m torch.distributed.run --nproc_per_node N \\
         -m podtpu_torch.train.run --cfg ... --distributed
 
 ``--backend gloo`` for ranks sharing a card or on the CPU (``--device
 cpu``); ``--init-method file:///path`` makes the group meet through a
-file in place of torchrun's store. Each rank's loaders read its shard of
-the data (``host_id`` = rank, ``host_count`` = ranks) at ``batch_size //
-ranks`` rows a batch, as ``train.py`` gives each host its share.
+file in place of torchrun's store. Each data rank's loaders read its shard
+of the data (``host_id`` = its data coordinate, ``host_count`` = the data
+ranks) at ``batch_size // data ranks`` rows a batch, as ``train.py`` gives
+each host its share; space and model peers read the same rows.
 """
 
 from __future__ import annotations
@@ -29,7 +31,13 @@ from contextlib import contextmanager
 from podtpu_torch.config import get_configs
 from podtpu_torch.data.dataset import build_datasets
 from podtpu_torch.data.loader import Loader
-from podtpu_torch.parallel.mesh import init_distributed, rank, shutdown, world
+from podtpu_torch.parallel.mesh import (
+    init_distributed,
+    rank,
+    setup_layout,
+    shutdown,
+    world,
+)
 from podtpu_torch.train.trainer import Trainer
 from podtpu_torch.utils.summary import summarize
 
@@ -37,8 +45,11 @@ from podtpu_torch.utils.summary import summarize
 def make_loaders(cfg: dict, host_id: int | None = None,
                  host_count: int | None = None) -> tuple[Loader, Loader]:
     """(train_loader, val_loader) over ``build_datasets(cfg)``: this rank's
-    shard of each (by default the process group's rank and size), at
-    ``batch_size // host_count`` rows a batch."""
+    shard of each (by default its coordinate on the data axis and the data
+    ranks, ``parallel/mesh.py``), at ``batch_size // host_count`` rows a
+    batch. A ``batch_size`` that does not split over the data ranks raises:
+    torchrun fixes the rank count, where ``podtpu``'s ``_pick_mesh`` can
+    leave devices out."""
     host_id = rank() if host_id is None else host_id
     host_count = world() if host_count is None else host_count
     if cfg["batch_size"] % host_count:
@@ -71,6 +82,9 @@ def make_loaders(cfg: dict, host_id: int | None = None,
 
 def train(cfg: dict, resume: str | None = None, epochs: int | None = None,
           device=None) -> Trainer:
+    # the mesh of cfg parallel_options first: the loaders follow its data
+    # axis
+    setup_layout(cfg)
     train_loader, val_loader = make_loaders(cfg)
     log = print if rank() == 0 else (lambda _msg: None)
     trainer = Trainer(cfg, device=device, log=log)
@@ -104,8 +118,8 @@ def add_args(ap: argparse.ArgumentParser, cfg: str | None = None,
     ap.add_argument("--device", type=str, default=device,
                     help="torch device (default cuda; cpu for local runs)")
     ap.add_argument("--distributed", action="store_true",
-                    help="one rank of a torchrun job: data parallelism (FSDP "
-                         "with cfg parallel_options.fsdp)")
+                    help="one rank of a torchrun job: data parallelism (the "
+                         "layouts and FSDP of cfg parallel_options)")
     ap.add_argument("--backend", type=str, default=None,
                     choices=("nccl", "gloo"),
                     help="with --distributed: nccl (one card a rank, the "

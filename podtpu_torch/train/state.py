@@ -13,9 +13,13 @@ import torch
 from podtpu_torch.export.weights import load_flat_weights, load_npz_weights
 from podtpu_torch.models.factory import build_model
 from podtpu_torch.models.layers import ConvBnAct, HeadConv
+from podtpu_torch.parallel.layouts import apply_tensor_layout
 from podtpu_torch.parallel.mesh import (
     apply_fsdp,
+    axis_sizes,
     broadcast_module,
+    coords,
+    fsdp_mesh as fsdp_axes,
     local_tensors,
 )
 from podtpu_torch.train.optim import (
@@ -71,6 +75,9 @@ class TrainState:
     total_notfinite: int = 0
     ema: dict | None = None  # the shadow: state_dict key -> float32
     ema_opts: dict | None = None
+    # per parameter (the optimizer's order), under the tensor layout:
+    # whether it is a split kernel's block
+    split: list | None = None
 
     def params(self) -> list[torch.nn.Parameter]:
         """The model's parameters in the optimizer's group order."""
@@ -118,7 +125,8 @@ class TrainState:
                 p.grad = a
             self.mini_step, self.acc = 0, None
         if self.clip_norm:
-            clip_by_global_norm_([p.grad for p in params], self.clip_norm)
+            clip_by_global_norm_([p.grad for p in params], self.clip_norm,
+                                 split=self.split)
         flat = getattr(self.optimizer, "flat", None)
         if flat is not None:
             flat.gather_grads()
@@ -175,9 +183,14 @@ def create_train_state(cfg: dict, device: str | torch.device | None = None,
     ``ema`` the shadow starts from the weights after both loads.
 
     Under a process group every rank then takes rank 0's weights (as DDP
-    does), and with ``fsdp_mesh`` the whole model is sharded over it
-    (``parallel/mesh.py::apply_fsdp``) before the optimizer and the shadow
-    are made from the shards."""
+    does) and the model takes the layouts of the process's mesh
+    (``parallel/mesh.py::make_mesh``): under the tensor layout each rank
+    keeps its block of the split kernels
+    (``parallel/layouts.py::apply_tensor_layout``), under the spatial
+    layout the model is marked (``model.layout``) for the steps. With
+    ``fsdp_mesh`` the model is then sharded over its ``data x space``
+    ranks (``parallel/mesh.py::apply_fsdp``) before the optimizer and the
+    shadow are made from the shards."""
     model = build_model(cfg, device, train=True)
     if weights is not None:
         load_flat_weights(model, weights)
@@ -185,14 +198,23 @@ def create_train_state(cfg: dict, device: str | torch.device | None = None,
     if pretrained:
         load_npz_weights(model, pretrained, allow_partial=True)
     broadcast_module(model)
+    _, spatial, tensor = axis_sizes()
+    if spatial * tensor > 1:
+        model.layout = {"spatial": spatial, "tensor": tensor}
+    if tensor > 1:
+        apply_tensor_layout(model, tensor, coords()[2])
     if fsdp_mesh is not None:
         # each block (conv + BN + activation, the heads' 1x1 convs) is one
         # FSDP unit
-        apply_fsdp(model, fsdp_mesh, (ConvBnAct, HeadConv))
+        apply_fsdp(model, fsdp_axes(fsdp_mesh), (ConvBnAct, HeadConv))
     state = TrainState(model, build_optimizer(cfg, model),
                        build_schedule(cfg), clip_norm=clip_grad_norm(cfg),
                        accum=accum_steps(cfg), skip=skip_nonfinite(cfg),
                        ema_opts=ema_options(cfg))
+    if tensor > 1:
+        names = {id(p): n for n, p in model.named_parameters()}
+        state.split = [names.get(id(p)) in model.tp_keys
+                       for p in state.params()]
     if state.ema_opts is not None:
         state.init_ema()
     return state

@@ -48,6 +48,11 @@ from podtpu_torch.ops.decode import (
 )
 from podtpu_torch.ops.nms import batched_class_aware_nms
 from podtpu_torch.ops.retina import decode_retinanet
+from podtpu_torch.parallel.layouts import (
+    layout_scope,
+    model_axis_params,
+    space_rows,
+)
 from podtpu_torch.parallel.mesh import (
     agree_all,
     average_gradients,
@@ -275,7 +280,10 @@ def make_eval_step(cfg: dict, extra_variables: dict | None = None
     on_device: dict = {}  # device -> quant's tensors there, copied once
     loss_fn = build_loss(cfg)
     current: list = [None]  # the model of the call in progress
-    serve = make_serve_fn(cfg, lambda x: current[0](x), with_preds=True)
+    # under the spatial layout each forward (TTA's too) takes this rank's
+    # rows of the whole images
+    serve = make_serve_fn(cfg, lambda x: current[0](space_rows(x, current[0])),
+                          with_preds=True)
 
     def eval_step(state, batch):
         model = state.model
@@ -287,7 +295,7 @@ def make_eval_step(cfg: dict, extra_variables: dict | None = None
             if quant and dev not in on_device:
                 on_device[dev] = {p: {k: v.to(dev) for k, v in q.items()}
                                   for p, q in quant.items()}
-            with quant_scope(model, on_device.get(dev)):
+            with quant_scope(model, on_device.get(dev)), layout_scope(model):
                 preds, dets, valid = serve(_as_input(batch["img"]))
             with torch.inference_mode():
                 loss = loss_fn(preds, batch["annot"])
@@ -337,7 +345,8 @@ def make_stats_step(cfg: dict) -> Callable:
                 img = _as_input(batch["img"])
                 if device_geom:
                     img = separable_affine(img, batch["geom"])
-                model(img)
+                with layout_scope(model):
+                    model(space_rows(img, model))
         finally:
             for _, m in bns:
                 m.stats_sink = None
@@ -390,11 +399,15 @@ def make_train_step(cfg: dict) -> Callable:
     ``podtpu`` keeps a NaN out of them).
 
     Under a process group (``parallel/mesh.py``) ``batch`` holds this
-    rank's rows of the global batch: BatchNorm and the stem take the global
-    statistics, the gradients are averaged over the ranks after the
-    backward (FSDP reduces its own), the guard's flags are read after that
-    and agreed by every rank, and the augmentation and dropout draws are
-    the global batch's, of which the rank keeps its rows."""
+    data rank's rows of the global batch: BatchNorm and the stem take the
+    global statistics, the gradients are averaged over ``data x space``
+    after the backward (FSDP reduces its own; the whole leaves a channel
+    slice uses are first summed over ``model``), the guard's flags are read
+    after that and agreed by every rank, and the augmentation and dropout
+    draws are the global batch's, of which the rank keeps its rows. Under
+    the layouts (``parallel/layouts.py``) the forward and the backward run
+    in the model's layout scope, and under the spatial layout the forward
+    takes this rank's block of the augmented images' rows."""
     loss_fn = build_loss(cfg)
     policy = remat_policy(cfg)
     guard = skip_nonfinite(cfg) > 0
@@ -433,15 +446,16 @@ def make_train_step(cfg: dict) -> Callable:
             bns = [m for m in model.modules() if isinstance(m, BatchNormMixed)]
             stats = [t for m in bns for t in (m.running_mean, m.running_var)]
             start = [t.clone() for t in stats]
-        with record_function("forward"), remat_scope(policy):
-            preds = model(_as_input(img))
-        with record_function("loss"):
-            loss = loss_fn(preds, annot)
-        with record_function("backward"):
-            loss.backward()
+        with layout_scope(model):
+            with record_function("forward"), remat_scope(policy):
+                preds = model(space_rows(_as_input(img), model))
+            with record_function("loss"):
+                loss = loss_fn(preds, annot)
+            with record_function("backward"):
+                loss.backward()
         # under a process group the gradients are averaged over it
         with record_function("gradient_reduction"):
-            average_gradients(state.params())
+            average_gradients(state.params(), *model_axis_params(model))
         with record_function("optimizer"):
             if guard:
                 # read after the reduction, and agreed: every rank takes

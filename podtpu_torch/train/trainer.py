@@ -24,14 +24,18 @@ train_yolov3.py:50-74):
   and with cfg ``log_images: N`` the first val batch's detections drawn.
 
 Under a process group (``parallel/mesh.py``; ``train/run.py
---distributed``) each rank trains on its rows of the global batch: data
-parallelism with global BatchNorm, or with cfg ``parallel_options.fsdp``
-FSDP2; ``tensor`` / ``spatial`` raise. Rank 0 makes the run directory,
-writes the checkpoints (gathered whole under FSDP, so that they load in
-any topology) and the TensorBoard scalars; ``validate`` scores every
-rank's rows on every rank (the global mAP) and averages the val loss over
-the ranks; a SIGTERM or early stop on one rank stops every rank at the
-same step.
+--distributed``) each data rank trains on its rows of the global batch:
+data parallelism with global BatchNorm, with cfg
+``parallel_options.spatial`` / ``.tensor`` the spatial and tensor
+layouts (``parallel/layouts.py``), and with ``.fsdp`` FSDP2, composed as
+in ``podtpu``. Rank 0 makes the run directory, writes the checkpoints (in
+the one-process layout: gathered whole under FSDP and the tensor layout,
+so that they load in any topology) and the TensorBoard scalars;
+``validate`` scores every data rank's rows on every rank (the global mAP)
+and averages the val loss over the ranks; a SIGTERM or early stop on one
+rank stops every rank at the same step. Without a group the options are
+the one-process step (``fsdp`` over one rank is the plain step, as
+``podtpu`` runs it).
 """
 
 from __future__ import annotations
@@ -57,13 +61,14 @@ from podtpu_torch.parallel.mesh import (
     barrier,
     broadcast_object,
     full_tree,
+    gather_model,
     gather_rows,
     is_distributed,
     load_full_state,
-    make_mesh,
     mean_over_ranks,
     parallel_options,
     rank,
+    setup_layout,
     shard_like,
     world,
 )
@@ -264,9 +269,10 @@ class CheckpointIO:
         }
         if state.ema is not None:
             payload["ema"] = state.ema
-        # the one-process layout: FSDP's shards gathered whole (every rank
-        # takes part), written by rank 0 alone
-        payload = full_tree(payload)
+        # the one-process layout: FSDP's shards and the tensor layout's
+        # blocks gathered whole (every rank takes part), written by rank 0
+        # alone
+        payload = whole_payload(state, full_tree(payload))
         if not self._writes:
             if not self._async:
                 self.wait()
@@ -347,6 +353,35 @@ class CheckpointIO:
             else:
                 state.init_ema()
         return state
+
+
+def whole_payload(state: TrainState, payload: dict) -> dict:
+    """``payload`` (a checkpoint's, FSDP's shards already gathered) with
+    the tensor layout's blocks of the split kernels gathered whole over
+    ``model``: in the model, the EMA shadow, the optimizer's state and the
+    accumulator. Every rank calls it, in the same order."""
+    keys = getattr(state.model, "tp_keys", None)
+    if not keys:
+        return payload
+    out = dict(payload)
+    for tree in ("model", "ema"):
+        if out.get(tree) is not None:
+            out[tree] = type(out[tree])(out[tree])
+            for k in sorted(keys):
+                out[tree][k] = gather_model(out[tree][k])
+    split = [i for i, s in enumerate(state.split or ()) if s]
+    osd = out.get("optimizer")
+    if osd is not None:
+        osd = dict(osd)
+        osd["state"] = {i: {k: gather_model(v) if i in split
+                            and torch.is_tensor(v) and v.dim() else v
+                            for k, v in st.items()}
+                        for i, st in osd["state"].items()}
+        out["optimizer"] = osd
+    if out.get("acc") is not None:
+        out["acc"] = [gather_model(a) if i in split else a
+                      for i, a in enumerate(out["acc"])]
+    return out
 
 
 def _load_payload(path: str, state: TrainState) -> dict:
@@ -460,19 +495,17 @@ class Trainer:
         self.cfg = cfg
         self.log = log
         self.device = resolve_device(device)
-        # cfg parallel_options: fsdp shards over the group; tensor and
-        # spatial raise (podtpu's _pick_mesh)
-        self._fsdp = parallel_options(cfg)
-        if self._fsdp and not is_distributed():
-            raise ValueError("parallel_options.fsdp shards over a process "
-                             "group: launch with torchrun and --distributed")
+        # cfg parallel_options (podtpu's _pick_mesh): under a process group
+        # the mesh of the spatial and tensor layouts, FSDP over it; without
+        # one the plain step, as podtpu's mesh of one device runs them
+        self._fsdp = parallel_options(cfg)["fsdp"] and is_distributed()
+        mesh = setup_layout(cfg, self.device.type)
         self._replica = None  # the whole model FSDP's evaluation runs on
         # seeded init without touching the caller's global RNG
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(int(cfg.get("seed", 0)))
             self.state = create_train_state(
-                cfg, self.device,
-                fsdp_mesh=make_mesh(self.device.type) if self._fsdp else None)
+                cfg, self.device, fsdp_mesh=mesh if self._fsdp else None)
         self.train_step = make_train_step(cfg)
         # cfg ``steps_per_dispatch: K``: K optimizer steps a call over a
         # stacked group of K batches; ragged epoch tails run the single step
@@ -691,7 +724,8 @@ class Trainer:
                     for name, p in swa_model.named_parameters():
                         p.copy_(swa_params[name])
             swa_state = TrainState(swa_model, self.state.optimizer,
-                                   self.state.schedule, self.state.step)
+                                   self.state.schedule, self.state.step,
+                                   split=self.state.split)
             n_recal = int(swa_cfg.get("bn_recal_batches", 20))
             swa_state = self.recalibrate_bn(swa_state, train_loader, n_recal)
             self.ckpt.save("swa", swa_state)
@@ -802,13 +836,19 @@ class Trainer:
         return TrainState(self._ema_model, self.state.optimizer,
                           self.state.schedule, self.state.step)
 
+    def _one_process(self, tree: dict) -> dict:
+        """A ``state_dict``-keyed tree of FSDP-gathered tensors with the
+        tensor layout's blocks gathered whole."""
+        return whole_payload(self.state, {"model": tree})["model"]
+
     def _whole_model(self, override: dict | None = None):
         """Under FSDP: a plain model on this rank's device holding the
         whole weights (gathered: every rank calls it), with ``override``'s
         entries in place of theirs; evaluation, the EMA's and SWA's
         weights run on it."""
-        weights = full_tree(self.state.model.state_dict())
-        weights.update(override or {})
+        weights = self._one_process(full_tree(self.state.model.state_dict()))
+        if override:
+            weights.update(self._one_process(override))
         if self._replica is None:
             devices = [self.device] if self.device.type == "cuda" else []
             with torch.random.fork_rng(devices=devices):

@@ -77,33 +77,36 @@ def _operands(shape, dtype, seed=5):
     return x, wt, g, (mul, add, mean, rinv, inv, u[0] / n, u[1] / n), s, u
 
 
-def _bwd(lib, name, x, wt, vecs, g, cols):
+def _bwd(lib, name, x, wt, vecs, g, cols, halo=0):
     b, h, w, _ = x.shape
+    h -= 2 * halo
     partials = torch.empty((ROWS, cols))
     out = torch.empty((cols,))
     wk, vec = sk._wk(wt, x.dtype), sk._vec7(*vecs)
     _call(lib, name, x.data_ptr(), wk.data_ptr(), vec.data_ptr(),
           g.data_ptr(), partials.data_ptr(), ROWS, out.data_ptr(), b, h, w,
-          int(x.dtype == torch.bfloat16), None)
+          int(x.dtype == torch.bfloat16), halo, None)
     return out
 
 
-def _stats(lib, x, wt):
+def _stats(lib, x, wt, halo=0):
     b, h, w, _ = x.shape
+    h -= 2 * halo
     partials, out = torch.empty((ROWS, 64)), torch.empty((64,))
     wk = sk._wk(wt, x.dtype)
     _call(lib, "stats", x.data_ptr(), wk.data_ptr(), partials.data_ptr(), ROWS,
-          out.data_ptr(), b, h, w, int(x.dtype == torch.bfloat16), None)
+          out.data_ptr(), b, h, w, int(x.dtype == torch.bfloat16), halo, None)
     return out.view(2, 32)
 
 
-def _emit(lib, x, wt, mul, add, out=None):
+def _emit(lib, x, wt, mul, add, out=None, halo=0):
     b, h, w, _ = x.shape
+    h -= 2 * halo
     if out is None:
         out = torch.empty((b, h // 2, w // 2, 32), dtype=x.dtype)
     wk, vec = sk._wk(wt, x.dtype), torch.stack([mul, add]).contiguous()
     _call(lib, "emit", x.data_ptr(), wk.data_ptr(), vec.data_ptr(),
-          out.data_ptr(), b, h, w, int(x.dtype == torch.bfloat16), None)
+          out.data_ptr(), b, h, w, int(x.dtype == torch.bfloat16), halo, None)
     return out
 
 
@@ -177,7 +180,7 @@ def test_mocked_backward_rejects_misaligned_and_odd_shapes(lib):
     partials, out = torch.empty((ROWS, 64)), torch.empty((64,))
     wk, vec = sk._wk(wt, x.dtype), sk._vec7(*vecs)
     args = [x.data_ptr(), wk.data_ptr(), vec.data_ptr(), g.data_ptr(),
-            partials.data_ptr(), ROWS, out.data_ptr(), 1, 16, 16, 1, None]
+            partials.data_ptr(), ROWS, out.data_ptr(), 1, 16, 16, 1, 0, None]
     assert fn(*args) == 0
     assert fn(*(args[:8] + [15] + args[9:])) != 0            # odd H
     assert fn(*([args[0] + 2] + args[1:])) != 0              # x off by 2 bytes
@@ -242,9 +245,9 @@ def test_mocked_forward_rejects_misaligned_and_odd_shapes(lib):
     pooled = torch.empty((1, 8, 8, 32 + 1), dtype=x.dtype).flatten()
     stats, emit = _fn(lib, "stats"), _fn(lib, "emit")
     s_args = [x.data_ptr(), wk.data_ptr(), partials.data_ptr(), ROWS,
-              sums.data_ptr(), 1, 16, 16, 1, None]
+              sums.data_ptr(), 1, 16, 16, 1, 0, None]
     e_args = [x.data_ptr(), wk.data_ptr(), vec.data_ptr(), pooled.data_ptr(),
-              1, 16, 16, 1, None]
+              1, 16, 16, 1, 0, None]
     assert stats(*s_args) == 0 and emit(*e_args) == 0
     assert stats(*(s_args[:7] + [15] + s_args[8:])) != 0     # odd W
     assert emit(*(e_args[:5] + [15] + e_args[6:])) != 0      # odd H
@@ -254,7 +257,7 @@ def test_mocked_forward_rejects_misaligned_and_odd_shapes(lib):
     # float32 has no 16-byte pieces of x: only the shape is checked there
     xf = torch.zeros(x.numel() + 1)[1:].copy_(x.flatten())
     assert xf.data_ptr() % 16 == 4
-    assert stats(*([xf.data_ptr()] + s_args[1:8] + [0, None])) == 0
+    assert stats(*([xf.data_ptr()] + s_args[1:8] + [0, 0, None])) == 0
 
 
 def _saved_case():
@@ -287,3 +290,58 @@ def test_mocked_backward_equals_saved_outputs(lib):
     want = np.load(SAVED_BWD)
     assert got.shape == want.shape == (928,)
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# ---- a block of rows with its halo (the spatial layout) ---------------------
+
+def _blocks(x, n, zero_halo=False):
+    """The n row blocks of NHWC x, each with one row of its neighbours
+    above and below (zeros at the image's edge, or everywhere with
+    ``zero_halo``): the kernels' ``halo`` input."""
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 1, 1)).to(x.dtype)
+    k = x.shape[1] // n
+    out = []
+    for i in range(n):
+        blk = xp[:, i * k:(i + 1) * k + 2].clone()
+        if zero_halo:
+            blk[:, 0].zero_()
+            blk[:, -1].zero_()
+        out.append(blk.contiguous())
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mocked_kernels_with_a_halo_match_the_whole_image(lib, dtype):
+    """Two row blocks of a (2, 32, 40) image (ragged column tiles), each
+    with its halo: the four kernels on each block against their plain
+    twins on it (as the forward and backward tests hold them), the pooled
+    blocks bit for bit the whole image's pooled rows, and the blocks'
+    sums and dW, added, the whole image's (1e-5 of the max in float32,
+    1e-3 in bf16). A halo of zeros in place of the neighbour's rows
+    changes the pooled rows at the block edge."""
+    x, wt, g, vecs, s_r, u_r = _operands((2, 32, 40), dtype)
+    blocks = _blocks(x, 2)
+    gs = g.chunk(2, dim=1)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    stats = [_stats(lib, b, wt, halo=1) for b in blocks]
+    pooled = [_emit(lib, b, wt, *vecs[:2], halo=1) for b in blocks]
+    sums = [_bwd(lib, "bwd_sums", b, wt, vecs, gi.contiguous(), 64, halo=1)
+            for b, gi in zip(blocks, gs)]
+    dws = [_bwd(lib, "bwd_dw", b, wt, vecs, gi.contiguous(), 864, halo=1)
+           for b, gi in zip(blocks, gs)]
+    for b, gi, s, u, d in zip(blocks, gs, stats, sums, dws):
+        gi = gi.contiguous()
+        assert _rel(s, sk.stem_stats_reference(b, wt, halo=True)) <= tol
+        assert _rel(u.view(2, 32), sk.stem_bwd_sums_reference(
+            b, wt, *vecs[:4], gi, halo=True)) <= 2e-3
+        assert _rel(d.view(3, 3, 3, 32), sk.stem_bwd_dw_reference(
+            b, wt, *vecs, gi, halo=True)) <= 2e-3
+    whole = _emit(lib, x, wt, *vecs[:2])
+    assert torch.equal(torch.cat(pooled, dim=1), whole)
+    assert _rel(stats[0] + stats[1], _stats(lib, x, wt)) <= tol
+    assert _rel((sums[0] + sums[1]).view(2, 32), u_r) <= 2e-3
+    assert _rel(dws[0] + dws[1], _bwd(lib, "bwd_dw", x, wt, vecs, g, 864)
+                ) <= tol * 10
+    zeroed = [_emit(lib, b, wt, *vecs[:2], halo=1)
+              for b in _blocks(x, 2, zero_halo=True)]
+    assert not torch.equal(torch.cat(zeroed, dim=1), whole)

@@ -1,13 +1,17 @@
-"""One rank of the two-rank ``gloo`` job that ``tests/test_torch_parallel.py``
-holds against one-process runs and ``podtpu``.
+"""One rank of the ``gloo`` jobs that ``tests/test_torch_parallel.py`` and
+``tests/test_torch_layouts.py`` hold against one-process runs and
+``podtpu``.
 
-    python -m tests.torch_parallel_job RANK WORLD STORE OUT
+    python -m tests.torch_parallel_job RANK WORLD STORE OUT [four]
 
 Each rank joins the group through a file store, runs every check on its
 rows of the global inputs and weights (made from numpy seeds by
 :func:`inputs` and :func:`seeded_flat`, which the test's process calls
-too) and writes its results to ``OUT`` as an ``.npz``. It imports no JAX:
-the references are computed by the test.
+too) and writes its results to ``OUT`` as an ``.npz``. The two-rank job
+runs data parallelism and FSDP, then the tensor layout on a ``(model=2)``
+mesh and the spatial layout on a ``(space=2)`` mesh (:func:`layouts_run`);
+``four`` runs the four-rank compositions (:func:`four_run`). It imports
+no JAX: the references are computed by the tests.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from tests.helpers import VOC_ANCHORS
 
 C = 20
 B = 4  # the global batch of every check: two rows a rank
+B96 = 2  # the layouts' global batch at 96 px (every rank holds both rows)
 
 
 def yolo_cfg(**extra) -> dict:
@@ -89,6 +94,9 @@ def inputs() -> dict:
                                  .astype(np.float32))
     out["retina_annot"] = pad_annotations(
         [_boxes(r, 1 + 2 * i) for i in range(B)], 8)
+    # the layouts' batch at 96 px (an odd stride-32 grid of 3 rows)
+    out["img96"] = r.integers(0, 256, (B96, 96, 96, 3), dtype=np.uint8)
+    out["annot96"] = pad_annotations([_boxes(r, 4) for _ in range(B96)], 8)
     return out
 
 
@@ -170,24 +178,29 @@ def seeded_flat(cfg: dict, seed: int) -> dict:
     return flat_from_tensors(sd, conv_paths(model))
 
 
-def state_for(cfg: dict, flat: dict | None = None, fsdp: bool = False):
+def state_for(cfg: dict, flat: dict | None = None, fsdp=False):
+    """A train state on the CPU in the process's layout; ``fsdp``: True
+    (FSDP over a data axis made for it) or the mesh to shard over."""
     from podtpu_torch.parallel.mesh import make_mesh
     from podtpu_torch.train.state import create_train_state
 
+    grid = None
+    if fsdp:
+        grid = make_mesh("cpu") if fsdp is True else fsdp
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(5)
-        return create_train_state(cfg, "cpu", weights=flat,
-                                  fsdp_mesh=make_mesh("cpu") if fsdp
-                                  else None)
+        return create_train_state(cfg, "cpu", weights=flat, fsdp_mesh=grid)
 
 
 def flat_of(state) -> dict:
+    """The state's weights whole (FSDP's shards and the tensor layout's
+    blocks gathered: every rank calls it)."""
     from podtpu_torch.export.weights import flat_from_state_dict
 
     return flat_from_state_dict(state.model)
 
 
-def steps_run(cfg: dict, flat, batches, shard, fsdp: bool = False,
+def steps_run(cfg: dict, flat, batches, shard, fsdp=False,
               keep=(-1,)) -> dict:
     """Train steps over ``batches`` (global host batches), each fed through
     ``shard``; returns the losses, the flat weights after the steps in
@@ -203,8 +216,8 @@ def steps_run(cfg: dict, flat, batches, shard, fsdp: bool = False,
     step = make_train_step(cfg)
     clip, norms = st.clip_by_global_norm_, []
 
-    def recorded(grads, max_norm):
-        norm = clip(grads, max_norm)
+    def recorded(grads, max_norm, **kw):
+        norm = clip(grads, max_norm, **kw)
         norms.append(float(norm))
         return norm
 
@@ -330,13 +343,155 @@ def flatten(prefix: str, tree, out: dict):
     return out
 
 
+def cfg96(**extra) -> dict:
+    """:func:`yolo_cfg` at 96 px: YOLOv3's stride-32 grid is 3 rows, which
+    2 space ranks cannot split (as 416 px's 13)."""
+    return yolo_cfg(input_size=96, **extra)
+
+
+def batch96(x: dict) -> dict:
+    return {"img": x["img96"], "annot": x["annot96"]}
+
+
+def eval_run(cfg: dict, flat, b: dict) -> dict:
+    """The eval step (loss, detections) and the eval-mode heads of a fresh
+    state holding ``flat``, in the process's layout."""
+    from podtpu_torch.parallel.layouts import layout_scope, space_rows
+    from podtpu_torch.train.steps import _as_input, make_eval_step
+
+    state = state_for(cfg, flat)
+    t = tensors(b)
+    loss, dets, valid = make_eval_step(cfg)(state, t)
+    model = state.model.eval()
+    with torch.no_grad(), layout_scope(model):
+        heads = model(space_rows(_as_input(t["img"]), model))
+    return {"loss": loss, "dets": dets, "valid": valid,
+            **{f"head{i}": h for i, h in enumerate(heads)}}
+
+
+def stem_space_run(x: dict, zero_halo: bool = False) -> dict:
+    """The fused stem op on this space rank's block of rows of every image
+    (the plain twins with the halo), its pooled rows' cotangent block;
+    ``zero_halo`` plants a halo of zeros in place of the neighbour's
+    rows."""
+    from podtpu_torch.models.layers import ConvBnAct
+    from podtpu_torch.models.stem import fused_stem_pool
+    from podtpu_torch.parallel import layouts, mesh
+    from podtpu_torch.parallel.layouts import layout_scope, space_rows
+
+    block = ConvBnAct(3, 32)
+    block.layout = {"spatial": mesh.spatial_size()}
+    with torch.no_grad():
+        block.conv.weight.copy_(torch.from_numpy(x["stem_w"]))
+        block.bn.weight.copy_(torch.from_numpy(x["stem_scale"]))
+        block.bn.bias.copy_(torch.from_numpy(x["stem_bias"]))
+    xi = space_rows(torch.from_numpy(x["stem_x"]), block).permute(0, 3, 1, 2)
+    cot = torch.from_numpy(x["stem_cot"])
+    k = cot.shape[2] // mesh.spatial_size()
+    cot = cot[:, :, mesh.coords()[1] * k:(mesh.coords()[1] + 1) * k]
+    halo = layouts.halo
+    if zero_halo:
+        layouts.halo = lambda t, a, b, fill=0.0: torch.nn.functional.pad(
+            t, (0, 0, a, b))
+    try:
+        with layout_scope(block):
+            out = fused_stem_pool(block, xi)
+    finally:
+        layouts.halo = halo
+    (out.float() * cot).sum().backward()
+    return {"out": out.detach(), "gw": block.conv.weight.grad,
+            "gscale": block.bn.weight.grad, "gbias": block.bn.bias.grad,
+            "mean": block.bn.running_mean, "var": block.bn.running_var}
+
+
+def trainer_run(cfg: dict, b: dict) -> dict:
+    """``Trainer`` from ``cfg`` (its ``parallel_options``): the layout it
+    made, one train step and one eval step."""
+    from podtpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, device="cpu", eval_only=True, log=lambda m: None)
+    t = tensors(b)
+    state, m = trainer.train_step(trainer.state, t)
+    loss, dets, _ = trainer.eval_step(state, t)
+    layout = getattr(state.model, "layout", {})
+    return {"spatial": layout.get("spatial", 1),
+            "tensor": layout.get("tensor", 1),
+            "split": len(getattr(state.model, "tp_keys", ())),
+            "train_loss": m["loss"], "eval_loss": loss,
+            "dets": dets.shape[1]}
+
+
+def layouts_run(x: dict, flat: dict, rank: int) -> dict:
+    """On a ``(model=2)`` mesh, then a ``(space=2)`` mesh, over the same two
+    ranks: one train step and the eval step of YOLOv3 at 96 px, the
+    planted fault of each layout, ``Trainer`` from ``parallel_options``;
+    under ``space`` the stem op alone too."""
+    from podtpu_torch.parallel import mesh
+
+    out: dict = {}
+    whole = lambda b: b  # noqa: E731  (a data axis of one rank)
+    for key, axis in (("tensor", "model"), ("spatial", "space")):
+        mesh.make_mesh("cpu", **{key: 2})
+        run = steps_run(cfg96(), flat, [batch96(x)], whole)
+        out[axis] = {"loss": run["loss"][0],
+                     "digest": digest(run["flat"][0]),
+                     "eval": eval_run(cfg96(), flat, batch96(x)),
+                     "trainer": trainer_run(
+                         cfg96(parallel_options={key: 2}), batch96(x))}
+        if rank == 0:
+            out[axis]["flat"] = compact(run["flat"][0], flat)
+        if axis == "model":
+            # planted: the whole leaves' gradients not reduced over model
+            summed = mesh.sum_over_model
+            mesh.sum_over_model = lambda *params: None
+            try:
+                bad = steps_run(cfg96(), flat, [batch96(x)], whole)
+            finally:
+                mesh.sum_over_model = summed
+            if rank == 0:
+                out[axis]["unsummed"] = compact(bad["flat"][0], flat)
+        else:
+            out[axis]["stem"] = stem_space_run(x)
+            out[axis]["stem_zero_halo"] = stem_space_run(x, zero_halo=True)
+    mesh.make_mesh("cpu")
+    return out
+
+
+def four_run(x: dict, flat: dict, rank: int) -> dict:
+    """The four-rank compositions with FSDP at 64 px, one step each:
+    ``(data=2, space=2)`` and ``(data=2, model=2)``."""
+    from podtpu_torch.parallel import mesh
+
+    out: dict = {}
+    for key in ("spatial", "tensor"):
+        grid = mesh.make_mesh("cpu", **{key: 2})
+        run = steps_run(yolo_cfg(), flat, [batch(x, 0)], mesh.shard_batch,
+                        fsdp=grid)
+        out[key] = {"loss": mesh.mean_over_ranks(run["loss"][0]),
+                    "digest": digest(run["flat"][0]),
+                    "sharded": run["sharded"],
+                    "shape": mesh.axis_sizes(),
+                    "fsdp_ranks": mesh.fsdp_mesh(grid).size()}
+        if rank == 0:
+            out[key]["flat"] = compact(run["flat"][0], flat)
+    return out
+
+
 def main(argv):
-    rank, world, store, out_path = argv
+    rank, world, store, out_path = argv[:4]
     rank, world = int(rank), int(world)
     torch.set_num_threads(2)
     from podtpu_torch.parallel import dryrun, mesh
 
     mesh.join("gloo", torch.device("cpu"), rank, world, f"file://{store}")
+    if argv[4:] == ["four"]:
+        try:
+            out = flatten("four", four_run(inputs(), seeded_flat(
+                yolo_cfg(), 3), rank), {})
+        finally:
+            mesh.shutdown()
+        np.savez(out_path, **out)
+        return
     flat, flat_v1 = seeded_flat(yolo_cfg(), 3), seeded_flat(yolov1_cfg(), 4)
     x = inputs()
     rows = slice(rank * B // world, (rank + 1) * B // world)
@@ -378,6 +533,7 @@ def main(argv):
         d = dryrun.run_checks(torch.device("cpu"))
         flatten("dryrun", {k: v for k, v in d.items()
                            if not k.endswith("_weights")}, out)
+        flatten("layouts", layouts_run(x, flat, rank), out)
     finally:
         mesh.shutdown()
     np.savez(out_path, **out)

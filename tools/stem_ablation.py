@@ -227,7 +227,7 @@ def entry_point_ms(lib, x, w, vecs, g) -> dict:
     partials = torch.empty((sk.MAX_BLOCKS, 27 * sk.CO), device=x.device)
     out = torch.empty((27 * sk.CO,), device=x.device)
     pooled = torch.empty_like(g)
-    tail = (b, h, wd, 1, torch.cuda.current_stream().cuda_stream)
+    tail = (b, h, wd, 1, 0, torch.cuda.current_stream().cuda_stream)
     scratch = (partials.data_ptr(), sk.MAX_BLOCKS, out.data_ptr())
     args = {"stats": (x.data_ptr(), wk.data_ptr(), *scratch),
             "emit": (x.data_ptr(), wk.data_ptr(), vec.data_ptr(),
