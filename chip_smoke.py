@@ -196,7 +196,16 @@ raising on failure:
    ms, the score drift; ``cli.export_model`` then ``cli.test --artifact``
    on phase 9's ``best`` against ``cli.test --ckpt`` (val_mAP within
    1e-6, and each batch's detections handed to the host mAP held as the
-   artifacts above).
+   artifacts above). Then (PR 17) the TFLite files written by hand
+   (``export/tflite.py``): YOLOv3-416 float32 serving ``.tflite`` at B=1
+   and B=8 run by the port's reader on the card against the float32
+   in-process ``make_serve_fn`` as the artifacts above, the suppression
+   launched once a call from inside the reader, a forward file's heads
+   against the model's (a planted transposed 3x3 filter must fail that
+   check), export s, MB and load s, ms a batch against a float32 ``.pt2``
+   and in-process serving; ``cli.export_model --format tflite`` and
+   ``cli.test --artifact x.tflite`` on phase 9's ``best`` against
+   ``--ckpt``, both float32 at B=8.
 
 21. parallel: data parallelism with global BatchNorm through the fused
    stem's kernels, FSDP, and the multi-process run (``parallel/``). Two
@@ -3621,13 +3630,59 @@ def _dets_close(got, want):
         "score_abs": score, "classes_equal": cls}
 
 
-def cli_test_batches(cli_test, argv_artifact, argv_ckpt, counted):
+def _dets_match(got, want, tol=ARTIFACT_TOL):
+    """(ok, stats): valid masks equal, and each image's valid detections
+    paired one to one with the other's (same class, score within ``tol``,
+    box within ``tol`` of its size, at least 1 px), so that two
+    detections whose scores lie within rounding of each other may come in
+    either order: two float32 programs that round apart can swap them.
+    A detection left unpaired on either side must score within ``tol`` of
+    the image's last kept score: where ``max_detections`` cuts a run of
+    scores tied within rounding (many sit within 1e-7 of 1), the two may
+    keep different members of it."""
+    (gd, gv), (wd, wv) = got, want
+    same_valid = bool(torch.equal(gv.cpu(), wv.cpu()))  # score-sorted
+    box = score = 0.0
+    unmatched = cut_swaps = 0
+    for b in range(gd.shape[0]):
+        g = gd[b][gv[b]].double().cpu()
+        w = wd[b][wv[b]].double().cpu()
+        free = torch.ones(len(w), dtype=torch.bool)
+        alone = []
+        for row in g:
+            rel = ((w[:, :4] - row[:4]).abs()
+                   / w[:, :4].abs().clamp_min(1.0)).amax(-1)
+            ds = (w[:, 4] - row[4]).abs()
+            fits = free & (w[:, 5] == row[5]) & (ds <= tol) & (rel <= tol)
+            if not fits.any():
+                alone.append(float(row[4]))
+                continue
+            j = int(torch.where(fits, rel, torch.inf).argmin())
+            free[j] = False
+            box, score = max(box, float(rel[j])), max(score, float(ds[j]))
+        alone += w[free, 4].tolist()
+        cut = min(g[:, 4].min().item(), w[:, 4].min().item()) if len(g) \
+            else 0.0
+        at_cut = sum(abs(a - cut) <= tol for a in alone)
+        cut_swaps += at_cut
+        unmatched += len(alone) - at_cut
+    ok = same_valid and unmatched == 0
+    return ok, {"valid_equal": same_valid, "valid": int(gv.sum()),
+                "unmatched": unmatched, "swapped_at_the_cut": cut_swaps,
+                "box_rel": box, "score_abs": score,
+                "same_order": bool(torch.equal(gv, wv) and torch.equal(
+                    gd, wd))}
+
+
+def cli_test_batches(cli_test, argv_artifact, argv_ckpt, counted,
+                     close=None):
     """``cli.test --artifact`` and ``cli.test --ckpt`` on the same val
     files, each batch they hand the host mAP recorded: ``(got, want,
     per_batch, ok, launches)``. ``ok`` holds the annotations equal, the
-    detections within :func:`_dets_close`, batch for batch, and some
-    detection valid, so that agreeing maps of nothing fail. ``counted``
-    wraps the artifact's run and returns its result and launch counts."""
+    detections within ``close`` (default :func:`_dets_close`), batch for
+    batch, and some detection valid, so that agreeing maps of nothing
+    fail. ``counted`` wraps the artifact's run and returns its result and
+    launch counts."""
     from podtpu_torch.metrics.map import MeanAveragePrecision
 
     real = MeanAveragePrecision.update_state
@@ -3650,14 +3705,166 @@ def cli_test_batches(cli_test, argv_artifact, argv_ckpt, counted):
     per_batch = []
     ok = len(fed["artifact"]) == len(fed["ckpt"]) > 0
     for (ga, gd, gv), (wa, wd, wv) in zip(fed["artifact"], fed["ckpt"]):
-        close, stats = _dets_close(
+        same, stats = (close or _dets_close)(
             (torch.from_numpy(gd), torch.from_numpy(gv)),
             (torch.from_numpy(wd), torch.from_numpy(wv)))
         stats["annots_equal"] = bool(np.array_equal(ga, wa))
         per_batch.append(stats)
-        ok = ok and close and stats["annots_equal"]
+        ok = ok and same and stats["annots_equal"]
     ok = ok and sum(s.get("valid", 0) for s in per_batch) > 0
     return got, want, per_batch, ok, launches
+
+
+# the forward file's heads, of their scale: float32 with TF32 off, the BN
+# epilogue folded into the filters (4.9e-6 measured on the card)
+TFLITE_TOL = 2e-5
+
+
+def _planted_transposed_filter(path, dev):
+    """The forward file with its first non-symmetric 3x3 filter's H and W
+    swapped (a layout fault), loaded on ``dev``."""
+    from podtpu_torch.export.tflite import TFLiteProgram, read_tflite
+
+    f = read_tflite(path)
+    for name, ins, _, _ in f.ops:
+        w = f.tensors[ins[1]][3] if name == "CONV_2D" else None
+        if w is not None and w.shape[1:3] == (3, 3) and not np.array_equal(
+                w, w.transpose(0, 2, 1, 3)):
+            n, shape, ttype, _ = f.tensors[ins[1]]
+            f.tensors[ins[1]] = (n, shape, ttype, np.ascontiguousarray(
+                w.transpose(0, 2, 1, 3)))
+            return TFLiteProgram(f, dev)
+    raise AssertionError("no 3x3 filter to plant a fault in")
+
+
+def tflite_checks(cfg, flat, dev, fit, images, tmp):
+    """Phase 20's TFLite part: YOLOv3-416 as float32 ``.tflite`` serving
+    files at B=1 and B=8 and a forward file, written by
+    ``export/tflite.py`` and run by its reader on the card: held to the
+    in-process float32 ``make_serve_fn`` (the detections paired as
+    :func:`_dets_match`) and the model's raw heads, the
+    suppression launched once a call from inside the reader, a planted
+    transposed filter failing the heads check, ms a batch against a
+    float32 ``.pt2`` and in-process serving; then ``cli.export_model
+    --format tflite`` and ``cli.test --artifact`` on phase 9's ``best``
+    against ``cli.test --ckpt`` in float32. Returns ``(launches, record,
+    checks)``."""
+    from podtpu_torch.cli import export_model as cli_export
+    from podtpu_torch.cli import test as cli_test
+    from podtpu_torch.export import program, tflite
+    from podtpu_torch.export.weights import load_flat_weights
+    from podtpu_torch.models.factory import build_model
+    from podtpu_torch.train.steps import make_serve_fn
+
+    cfg32 = dict(cfg, compute_dtype="float32")
+    size = cfg["input_size"]
+    m32 = load_flat_weights(build_model(cfg32, dev), flat).eval()
+    serve32 = make_serve_fn(cfg32, m32)
+    launches, checks, rec = {k: 0 for k in _counts()}, {}, {}
+    pt2 = os.path.join(tmp, "yolov3_serving_f32_dyn.pt2")
+    t0 = time.perf_counter()
+    program.export_serving(m32, cfg32, (None, size, size, 3), pt2)
+    rec["pt2_f32_export_s"] = time.perf_counter() - t0
+    pt2_fn = program.load_exported(pt2)
+    for b in (1, 8):
+        x = images[8][:b].float() / 255.0
+        path = os.path.join(tmp, f"yolov3_serving_B{b}.tflite")
+        t0 = time.perf_counter()
+        tflite.export_tflite(m32, cfg32, (b, size, size, 3), path,
+                             with_postprocess=True)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prog = tflite.load_tflite(path, dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want = serve32(x)
+        torch.cuda.synchronize()
+        _zero_counts()
+        got = prog(x)
+        torch.cuda.synchronize()
+        one = _counts()
+        again = prog(x)
+        torch.cuda.synchronize()
+        two = _counts()
+        launches = _add_counts(launches, two)
+        close, stats = _dets_match(got, want)
+        on_card = all(t.device.type == "cuda" for t in got + again)
+        r = {"export_s": export_s, "MB": os.path.getsize(path) / 2**20,
+             "load_s": load_s, "vs_in_process": stats,
+             "launches_one_call": one, "launches_two_calls": two,
+             "repeat_equal": bool(torch.equal(got[0], again[0])
+                                  and torch.equal(got[1], again[1])),
+             "outputs_on_card": on_card,
+             "ops": tflite.inspect_tflite(path)["ops"]}
+        r["ms_reader"] = cuda_ms(lambda: prog(x), 10)
+        r["ms_pt2_f32"] = cuda_ms(lambda: pt2_fn(x), 10)
+        r["ms_in_process_f32"] = cuda_ms(lambda: serve32(x), 10)
+        r["device_busy_ms_reader"] = profiler_ms(lambda: prog(x), 5)
+        checks[f"tflite_B{b}"] = (
+            close and on_card and r["repeat_equal"]
+            and one["greedy_suppress"] == 1
+            and two["greedy_suppress"] == 2
+            and not any(v for k, v in two.items() if k.startswith("stem")))
+        rec[f"B{b}"] = r
+        del prog
+    # the forward file against the model's raw heads; a planted
+    # transposed filter must fail the same check
+    x1 = images[8][:1].float() / 255.0
+    fwd = os.path.join(tmp, "yolov3_forward_B1.tflite")
+    t0 = time.perf_counter()
+    tflite.export_tflite(m32, cfg32, (1, size, size, 3), fwd)
+    fwd_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        heads = [h.float() for h in m32(x1)]
+    got = tflite.load_tflite(fwd, dev)(x1)
+    errs = [rel_err(g, w) for g, w in zip(got, heads)]
+    bad = _planted_transposed_filter(fwd, dev)(x1)
+    planted = [rel_err(g, w) for g, w in zip(bad, heads)]
+    rec["forward"] = {"export_s": fwd_s, "MB": os.path.getsize(fwd) / 2**20,
+                      "heads_rel_err": errs, "planted_rel_err": planted,
+                      "out_specs": [f"{tuple(g.shape)}" for g in got]}
+    checks["tflite_forward_heads"] = (
+        len(got) == len(heads) == 3 and max(errs) <= TFLITE_TOL
+        and all(g.shape == w.shape for g, w in zip(got, heads)))
+    checks["tflite_planted_filter_fails"] = max(planted) > TFLITE_TOL
+    del got, bad
+    for f in (fwd, pt2, os.path.join(tmp, "yolov3_serving_B1.tflite")):
+        os.remove(f)
+    # cli.export_model --format tflite, cli.test --artifact against --ckpt
+    fit_cfg = dict(fit["cfg"], compute_dtype="float32", batch_size=8)
+    yaml_path = _write_yaml(fit_cfg, tmp, "export_fit_f32.yaml")
+    art = os.path.join(tmp, "best_serving_B8.tflite")
+    cli_export.main(["--cfg", yaml_path, "--ckpt", fit["best"], "--format",
+                     "tflite", "--with-postprocess", "--batch", "8",
+                     "--out", art, "--device", dev.type])
+
+    def counted(run):
+        torch.cuda.synchronize()
+        _zero_counts()
+        out = run()
+        torch.cuda.synchronize()
+        return out, _counts()
+
+    got, want, per_batch, same, test_launches = cli_test_batches(
+        cli_test, ["--cfg", yaml_path, "--artifact", art, "--device",
+                   dev.type],
+        ["--cfg", yaml_path, "--ckpt", fit["best"], "--device", dev.type],
+        counted, close=_dets_match)
+    launches = _add_counts(launches, test_launches)
+    rec["cli_test"] = {"artifact_val_mAP": got["val_mAP"],
+                       "ckpt_val_mAP": want["val_mAP"],
+                       "per_batch": per_batch,
+                       "launches_test_artifact": test_launches}
+    # float32 through two programs: a score 1e-6 apart may reorder two
+    # detections of the precision-recall sweep (the batches are held above)
+    checks["tflite_cli_test_mAP"] = \
+        abs(got["val_mAP"] - want["val_mAP"]) <= 1e-4
+    checks["tflite_cli_test_batches"] = same
+    checks["tflite_cli_test_launches"] = \
+        test_launches["greedy_suppress"] == len(per_batch)
+    del m32, serve32, pt2_fn
+    torch.cuda.empty_cache()
+    return launches, rec, checks
 
 
 def export_phase(cfg, flat, dev, card, fit, images, tmp):
@@ -3863,8 +4070,16 @@ def export_phase(cfg, flat, dev, card, fit, images, tmp):
     checks["cli_test_artifact_batches"] = same_batches
     checks["cli_test_artifact_launches"] = \
         test_launches["greedy_suppress"] == 2
+    # the TFLite files, written by hand and run by the port's reader
+    t_tflite = time.perf_counter()
+    tflite_launches, tflite_rec, tflite_ok = tflite_checks(
+        cfg, flat, dev, fit, images, tmp)
+    tflite_rec["seconds"] = time.perf_counter() - t_tflite
+    launches = _add_counts(launches, tflite_launches)
+    checks.update(tflite_ok)
     emit({"phase": "export", "config": "configs/yolov3_voc.yaml",
           "artifacts": artifacts, "serving_ops": ops,
+          "tflite": tflite_rec, "launches_tflite": tflite_launches,
           "npu": {"forward_ok": report["ok"],
                   "forward_distinct_ops": len(report["ops"]),
                   "serving_unsupported": serving_unsupported,
@@ -3879,7 +4094,17 @@ def export_phase(cfg, flat, dev, card, fit, images, tmp):
                       "plain version's",
               "cli_test": "artifact val_mAP within 1e-6 of --ckpt's; "
                           "each batch's detections fed to the host mAP as "
-                          "the artifact check above, some valid"},
+                          "the artifact check above, some valid",
+              "tflite": "float32 files against float32 in-process "
+                        "serving: valid masks equal, each image's valid "
+                        "detections paired one to one (class equal, box "
+                        "within 1e-4 of its size, score within 1e-4), an "
+                        "unpaired one only within 1e-4 of the last kept "
+                        "score; the forward "
+                        "file's heads within 2e-5 of their max (TF32 off), "
+                        "which a transposed 3x3 filter must exceed; "
+                        "cli.test batches as above, val_mAP within 1e-4, "
+                        "in float32"},
           "checks": checks, "launches": launches,
           "seconds": time.perf_counter() - t_phase, "card": card})
     if not all(checks.values()):
@@ -3887,6 +4112,8 @@ def export_phase(cfg, flat, dev, card, fit, images, tmp):
                              f"{ {k: v for k, v in checks.items() if not v} }")
     del model, serve
     torch.cuda.empty_cache()
+    artifacts["tflite"] = tflite_rec
+    artifacts["launches_tflite"] = tflite_launches
     return launches, artifacts
 
 
@@ -5228,6 +5455,10 @@ def main() -> int:
             "greedy_suppress"],
         "ms_artifact_B8": export_artifacts["B8"]["ms_artifact_B8"],
         "ms_in_process_B8": export_artifacts["B8"]["ms_in_process_B8"],
+        "launches_export_tflite": export_artifacts["launches_tflite"][
+            "greedy_suppress"],
+        **{f"ms_tflite_reader_B{b}": export_artifacts["tflite"][f"B{b}"][
+            "ms_reader"] for b in (1, 8)},
         **{f"{k}_retina": retina_suppress[k]
            for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
         "plain_ms": plain_ms,

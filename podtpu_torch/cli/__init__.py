@@ -52,17 +52,17 @@ class Detector:
             if ckpt:
                 raise SystemExit("--artifact runs the exported graph as-is; "
                                  "--ckpt applies to a checkpoint")
-            import torch
-
-            from podtpu_torch.export.program import read_meta
-            from podtpu_torch.export.runner import artifact_runner
+            from podtpu_torch.export.runner import (
+                artifact_device,
+                artifact_runner,
+            )
 
             try:
-                self.run_artifact, self.batch = artifact_runner(artifact)
+                self.run_artifact, self.batch = artifact_runner(artifact,
+                                                                device)
             except ValueError as e:
                 raise SystemExit(str(e))
-            self.device = torch.device(read_meta(artifact).get("device",
-                                                               "cpu"))
+            self.device = artifact_device(artifact, device)
         else:
             self.trainer = eval_trainer(cfg, ckpt, device)
             self.device = self.trainer.device
@@ -91,7 +91,9 @@ def add_common_args(ap, artifact_help: str):
     ap.add_argument("--cfg", required=True, type=str)
     ap.add_argument("--ckpt", type=str, default=None)
     ap.add_argument("--artifact", type=str, default=None,
-                    help=artifact_help + " (a .pt2 from export_model "
-                    "--with-postprocess) instead of a checkpoint")
+                    help=artifact_help + " (a .pt2 or .tflite from "
+                    "export_model --with-postprocess) instead of a "
+                    "checkpoint")
     ap.add_argument("--device", type=str, default=None,
-                    help="torch device (default cuda; cpu for local runs)")
+                    help="torch device (default cuda; cpu for local runs); "
+                    "where a .tflite artifact runs")

@@ -1,8 +1,10 @@
-"""Export a model to a ``torch.export`` artifact (the port's
-``export_model.py``; torch2onnx.py analog).
+"""Export a model to a ``torch.export`` artifact or a TFLite file (the
+port's ``export_model.py``; torch2onnx.py analog).
 
     python -m podtpu_torch.cli.export_model --cfg configs/yolov3_voc.yaml \\
         [--ckpt ...] --out model.pt2 [--inspect] [--device cpu]
+    python -m podtpu_torch.cli.export_model --cfg ... --format tflite \\
+        --with-postprocess --out model.tflite [--fold-bn] [--device cpu]
 
 Options beyond the forward graph:
   --with-postprocess   the full serving unit, forward + decode + NMS (the
@@ -13,12 +15,15 @@ Options beyond the forward graph:
   --annotate out.json  write the sanitized per-layer annotation map
   --quantize int8      static PTQ: calibrate activation scales on val
                        batches (--calib-batches) and export int8 convs
-  --batch N|dyn        the batch; ``dyn`` exports a symbolic one
-  --format             pt2 (``torch.export``); tflite and savedmodel raise:
-                       the port has no converter for them
+  --batch N|dyn        the batch; ``dyn`` exports a symbolic one (pt2 only)
+  --format             pt2 (``torch.export``) or tflite (a float32
+                       flatbuffer written by ``export/tflite.py``);
+                       savedmodel raises: it is not ported
 
-The artifact runs on the device it was exported on (``--device``,
-default cuda).
+A ``.pt2`` runs on the device it was exported on (``--device``, default
+cuda); a ``.tflite`` is device-free, and the port's reader runs it where
+its caller says. ``--format tflite`` refuses ``--batch dyn`` (as
+``podtpu``) and ``--quantize`` (quantized TFLite is not ported).
 """
 
 from __future__ import annotations
@@ -66,7 +71,9 @@ def main(argv=None):
                     default=None,
                     help="export the checkpoint's EMA shadow weights "
                          "(default: auto, as cli.test picks them)")
-    ap.add_argument("--out", type=str, default="model.pt2")
+    ap.add_argument("--out", type=str, default=None,
+                    help="the artifact's path (default model.pt2, or "
+                         "model.tflite with --format tflite)")
     ap.add_argument("--batch", type=str, default="1",
                     help="batch size; 'dyn' exports a symbolic batch "
                          "dimension (one artifact serves any batch)")
@@ -83,7 +90,7 @@ def main(argv=None):
                     choices=["pt2", "tflite", "savedmodel"])
     ap.add_argument("--quantize", type=str, default=None,
                     choices=["int8", "dynamic"],
-                    help="static PTQ for the artifact (int8 convs); "
+                    help="static PTQ for the .pt2 artifact (int8 convs); "
                          "'dynamic' is TFLite's (not ported)")
     ap.add_argument("--calib-batches", type=int, default=8,
                     help="calibration batches for --quantize")
@@ -91,10 +98,22 @@ def main(argv=None):
                     help="torch device the artifact runs on (default cuda; "
                          "cpu for local runs)")
     args = ap.parse_args(argv)
-    if args.format in ("tflite", "savedmodel"):
+    if args.out is None:
+        args.out = "model.tflite" if args.format == "tflite" else "model.pt2"
+    if args.format == "savedmodel":
         from podtpu_torch.export.runner import TFLITE_UNPORTED
 
         raise NotImplementedError(TFLITE_UNPORTED)
+    if args.format == "tflite":
+        if args.batch == "dyn":
+            ap.error("--batch dyn is not supported for --format tflite "
+                     "(a TFLite artifact takes a static batch)")
+        if args.quantize:
+            from podtpu_torch.export.tflite import QUANTIZE_UNPORTED
+
+            ap.error(f"--format tflite: {QUANTIZE_UNPORTED}")
+        if args.annotate or args.validate_npu:
+            ap.error("--annotate / --validate-npu read a .pt2 artifact")
     if args.quantize == "dynamic":
         ap.error("--quantize dynamic is tflite-only (--format tflite)")
     if args.batch == "dyn" and args.quantize:
@@ -125,6 +144,15 @@ def main(argv=None):
         quantize_for_serving(model, _calibration_batches(
             cfg, shape, args.calib_batches))
         print(f"int8 PTQ: calibrated on {args.calib_batches} batches")
+    if args.format == "tflite":
+        from podtpu_torch.export.tflite import export_tflite, inspect_tflite
+
+        path = export_tflite(model, cfg, shape, args.out,
+                             with_postprocess=args.with_postprocess)
+        print(f"exported to {path}")
+        if args.inspect:
+            print(json.dumps(inspect_tflite(path), indent=2))
+        return path
     if args.with_postprocess:
         path = export_serving(model, cfg, shape, args.out)
     else:

@@ -1,14 +1,19 @@
 """Benchmark an exported artifact (the port's ``exported_inference.py``;
-onnx_inference.py:23-51 analog): load a ``.pt2`` program, run it on a
-seeded uniform input of its own shape, print the average latency and FPS.
+onnx_inference.py:23-51 analog): load a ``.pt2`` program or a ``.tflite``
+file, run it on a seeded uniform input of its own shape, print the average
+latency and FPS.
 
     python -m podtpu_torch.cli.exported_inference --model model.pt2 \\
         [--iters 50]
+    python -m podtpu_torch.cli.exported_inference --model model.tflite \\
+        [--device cpu]
 
-The artifact runs on the device it was exported on. On the card each
-call is timed with CUDA events after warm-up; on the CPU by the host
-clock. A symbolic-batch artifact (``--batch dyn``) is timed at batch 1.
-A ``.tflite`` path raises: the port has no TFLite converter.
+A ``.pt2`` runs on the device it was exported on; a ``.tflite`` runs
+through the port's reader (``export/tflite.py::load_tflite``) on
+``--device`` (default cuda). On the card each call is timed with CUDA
+events after warm-up; on the CPU by the host clock. A symbolic-batch
+artifact (``--batch dyn``) is timed at batch 1. A ``.savedmodel`` raises:
+it is not ported.
 """
 
 from __future__ import annotations
@@ -20,18 +25,26 @@ import numpy as np
 import torch
 
 
-def bench(path: str, iters: int = 50, warmup: int = 3) -> dict:
-    """``{"ms", "fps", "batch", "device"}`` of the artifact at ``path``."""
+def bench(path: str, iters: int = 50, warmup: int = 3,
+          device=None) -> dict:
+    """``{"ms", "fps", "batch", "device"}`` of the artifact at ``path``;
+    ``device`` is where a ``.tflite`` runs (default cuda)."""
     from podtpu_torch.export.program import load_exported, read_meta
     from podtpu_torch.export.runner import TFLITE_UNPORTED
 
-    if path.endswith((".tflite", ".savedmodel")):
+    if path.endswith(".savedmodel"):
         raise NotImplementedError(TFLITE_UNPORTED)
-    meta = read_meta(path)
+    if path.endswith(".tflite"):
+        from podtpu_torch.export.tflite import load_tflite
+
+        run = load_tflite(path, device or "cuda")
+        meta = dict(run.meta, device=str(run.device))
+    else:
+        meta = read_meta(path)
+        run = load_exported(path)
     shape = [d if d is not None else 1 for d in meta["input_shape"]]
     dev = torch.device(meta["device"])
     print(f"input: {meta['dtype']}{meta['input_shape']} on {dev}")
-    run = load_exported(path)
     x = torch.from_numpy(np.random.default_rng(0).uniform(
         0, 1, shape).astype(meta["dtype"])).to(dev)
     for _ in range(warmup):
@@ -59,8 +72,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", required=True, type=str)
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--device", type=str, default=None,
+                    help="where a .tflite runs (default cuda; cpu for local "
+                         "runs); a .pt2 runs where it was exported")
     args = ap.parse_args(argv)
-    return bench(args.model, args.iters)
+    return bench(args.model, args.iters, device=args.device)
 
 
 if __name__ == "__main__":

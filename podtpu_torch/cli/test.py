@@ -5,12 +5,15 @@ reference's ``test_yolov*.py`` Trainer.validate flow, test_yolov3.py:16-53).
         --ckpt saved/.../checkpoints/best [--report DIR] [--device cpu] \\
         [--quantize int8 --calib-batches 4]
     python -m podtpu_torch.cli.test --cfg ... --artifact model.pt2
+    python -m podtpu_torch.cli.test --cfg ... --artifact model.tflite \\
+        [--device cpu]
 
 ``--quantize int8`` scores the int8-PTQ model: activation scales
 calibrated on the first ``--calib-batches`` val batches
 (``export/quantize.py``), the eval step with the quant state installed.
 ``--artifact`` scores an exported serving artifact: the val mAP of the
-deployed graph, through the same host mAP as ``validate``.
+deployed graph, through the same host mAP as ``validate``; a ``.tflite``
+runs through the port's reader on ``--device`` (default cuda).
 """
 
 from __future__ import annotations
@@ -78,16 +81,17 @@ def evaluate(cfg: dict, ckpt: str | None, report_dir: str | None = None,
 
 
 def evaluate_artifact(cfg: dict, artifact: str,
-                      report_dir: str | None = None) -> dict:
+                      report_dir: str | None = None, device=None) -> dict:
     """Score an exported serving artifact over cfg ``val_list``: its
     detections through the host mAP ``validate`` uses, so the number
     matches ``--ckpt`` on the same weights. A fixed-batch artifact runs
-    at its batch, a symbolic one at cfg ``batch_size``."""
+    at its batch, a symbolic one at cfg ``batch_size``; ``device`` is
+    where a ``.tflite`` runs."""
     from podtpu_torch.export.runner import artifact_runner, prepare_input
     from podtpu_torch.metrics.map import MeanAveragePrecision
 
     try:
-        run, batch = artifact_runner(artifact)
+        run, batch = artifact_runner(artifact, device)
     except ValueError as e:
         raise SystemExit(str(e))
     if batch is None:
@@ -133,7 +137,7 @@ def main(argv=None):
                  "--ckpt/--quantize apply to checkpoint evaluation")
     if args.artifact:
         return evaluate_artifact(get_configs(args.cfg), args.artifact,
-                                 args.report)
+                                 args.report, device=args.device)
     return evaluate(get_configs(args.cfg), args.ckpt, args.report,
                     device=args.device, quantize=args.quantize,
                     use_ema=args.use_ema, calib_batches=args.calib_batches)

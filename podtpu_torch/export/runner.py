@@ -6,12 +6,14 @@ back ``(dets [B, M, 6], valid [B, M])`` as numpy arrays: ``cli.test
 --artifact`` (the val mAP of the deployed graph), ``cli.inference``,
 ``cli.make_pred_file``, ``cli.yolo2coco_pred_file`` and
 ``cli.make_video``. Artifacts are ``torch.export`` programs (``.pt2``,
-``export/program.py``) and run on the device they were exported on.
+``export/program.py``), which run on the device they were exported on,
+and float32 TFLite files (``.tflite``, ``export/tflite.py``), which the
+port's reader runs on the device it is given (the card by default).
 
-``podtpu``'s other artifact, a TFLite flatbuffer, has no converter here:
-the port imports no JAX or TensorFlow, and no package that converts a
-torch program to TFLite is installed. A ``.tflite`` path raises
-``NotImplementedError`` saying so.
+A TF SavedModel is not ported: it is a TensorFlow ``GraphDef`` run by the
+TensorFlow runtime, which the port does not import. A ``.savedmodel`` path
+raises ``NotImplementedError`` saying so; quantized TFLite is refused at
+export (``export/tflite.py::QUANTIZE_UNPORTED``).
 """
 
 from __future__ import annotations
@@ -20,22 +22,41 @@ import numpy as np
 import torch
 
 TFLITE_UNPORTED = (
-    "TFLite and SavedModel artifacts are not ported: the port has no "
-    "TFLite converter (it imports neither JAX's jax2tf nor TensorFlow, and "
-    "no torch-to-TFLite converter is installed); export a torch.export "
-    "program (.pt2) instead (ROADMAP.md queue 1, item 10)")
+    "SavedModel artifacts and quantized TFLite are not ported: a SavedModel "
+    "is a TensorFlow GraphDef run by the TensorFlow runtime, which the port "
+    "does not import (ROADMAP.md queue 1, item 10c), and quantized TFLite "
+    "needs TFLite's int8 arithmetic in the reader (item 10b); export a "
+    "float32 .tflite or a torch.export program (.pt2) instead")
 
 
-def artifact_runner(artifact: str):
+def _not_serving(artifact: str, outs) -> ValueError:
+    return ValueError(f"{artifact} is not a serving artifact (outputs: "
+                      f"{outs}); re-export with --with-postprocess")
+
+
+def artifact_device(artifact: str, device=None) -> torch.device:
+    """Where an artifact runs: a ``.pt2`` on the device it was exported
+    on, a ``.tflite`` on ``device`` (default cuda)."""
+    if artifact.endswith(".tflite"):
+        return torch.device(device or "cuda")
+    from podtpu_torch.export.program import read_meta
+
+    return torch.device(read_meta(artifact).get("device", "cpu"))
+
+
+def artifact_runner(artifact: str, device=None):
     """``(run, batch_size)`` where ``run(x) -> (dets, valid)`` (numpy).
 
     ``batch_size`` is ``None`` for a symbolic-batch export
     (``export_model --batch dyn``): the artifact then takes any leading
     dimension and the caller picks. Rejects a forward-only export (no
     decode + NMS inside) with a ``ValueError`` telling the user to
-    re-export ``--with-postprocess``."""
-    if artifact.endswith((".tflite", ".savedmodel")):
+    re-export ``--with-postprocess``. ``device`` is where a ``.tflite``
+    runs (:func:`artifact_device`)."""
+    if artifact.endswith(".savedmodel"):
         raise NotImplementedError(TFLITE_UNPORTED)
+    if artifact.endswith(".tflite"):
+        return _tflite_runner(artifact, artifact_device(artifact, device))
     from podtpu_torch.export.program import (
         inspect_program,
         load_program,
@@ -46,9 +67,7 @@ def artifact_runner(artifact: str):
     ep = load_program(artifact)
     outs = inspect_program(ep)["out_specs"]
     if meta.get("kind", "serving") != "serving" or len(outs) != 2:
-        raise ValueError(
-            f"{artifact} is not a serving artifact (outputs: {outs}); "
-            "re-export with --with-postprocess")
+        raise _not_serving(artifact, outs)
     module = ep.module()
     dev = torch.device(meta.get("device", "cpu"))
 
@@ -58,6 +77,21 @@ def artifact_runner(artifact: str):
         return dets.cpu().numpy(), valid.cpu().numpy().astype(bool)
 
     return run, meta.get("batch")
+
+
+def _tflite_runner(artifact: str, dev: torch.device):
+    from podtpu_torch.export.tflite import load_tflite
+
+    prog = load_tflite(artifact, dev)
+    if prog.meta.get("kind", "serving") != "serving" or \
+            len(prog.out_specs) != 2:
+        raise _not_serving(artifact, prog.out_specs)
+
+    def run(x):
+        dets, valid = prog(torch.as_tensor(np.asarray(x)))
+        return dets.cpu().numpy(), valid.cpu().numpy().astype(bool)
+
+    return run, prog.batch
 
 
 def prepare_input(x: np.ndarray) -> np.ndarray:

@@ -322,7 +322,8 @@ def _case(name, extra, check, old_id):
 
 
 @pytest.mark.parametrize("name,extra,check", [
-    _case("test", ["--artifact", "a.tflite"], "tflite", "test-extra0-item 10"),
+    _case("test", ["--artifact", "a.savedmodel"], "savedmodel",
+          "test-extra0-item 10"),
     _case("test", ["--quantize", "int8", "--ckpt", "CKPT"], "int8",
           "test-extra1-item 10"),
     _case("inference", ["--artifact", "ART"], "runs",
@@ -337,8 +338,9 @@ def _case(name, extra, check, old_id):
 def test_unported_cli_options_raise(cli_env, podtpu_cli, artifact, tmp_path,
                                     capsys, name, extra, check):
     """The options that raised before the export path was ported: a
-    ``.tflite`` artifact still raises, naming the converter the port
-    lacks; ``--quantize int8`` scores as podtpu's ``test.py --quantize
+    ``.savedmodel`` artifact still raises, naming SavedModel (a
+    ``.tflite`` one runs: ``tests/test_torch_tflite.py``); ``--quantize
+    int8`` scores as podtpu's ``test.py --quantize
     int8`` does on the same weights (val_loss 1e-3 relative, measured
     6.1e-4: the two calibrations' scales round apart, and a random-weight
     loss is sensitive to them; val_mAP 1e-3); ``--artifact x.pt2`` runs
@@ -347,8 +349,8 @@ def test_unported_cli_options_raise(cli_env, podtpu_cli, artifact, tmp_path,
     extra = [{"ART": artifact, "CKPT": ckpt}.get(a, a) for a in extra]
     argv = _argv(name, cfg_path, podtpu_cli, video, tmp_path, "--device",
                  "cpu", *extra)
-    if check == "tflite":
-        with pytest.raises(NotImplementedError, match="TFLite converter"):
+    if check == "savedmodel":
+        with pytest.raises(NotImplementedError, match="SavedModel"):
             CLIS[name][0].main(argv)
         return
     if name == "make_pred_file":

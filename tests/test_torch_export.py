@@ -281,8 +281,11 @@ def test_runner_rejects_a_forward_artifact_and_tflite(artifacts):
     fwd, _, _, _ = artifacts
     with pytest.raises(ValueError, match="--with-postprocess"):
         runner.artifact_runner(fwd)
-    with pytest.raises(NotImplementedError, match="TFLite converter"):
-        runner.artifact_runner("model.tflite")
+    # SavedModel is still refused; a .tflite is read (here: no such file)
+    with pytest.raises(NotImplementedError, match="SavedModel"):
+        runner.artifact_runner("model.savedmodel")
+    with pytest.raises(FileNotFoundError):
+        runner.artifact_runner("model.tflite", "cpu")
     info = program.inspect_exported(fwd)
     assert info["in_specs"] == ["float32[1,64,64,3]"]
     assert len(info["out_specs"]) == 3

@@ -192,7 +192,8 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_nothing_of_podtpu():
     files = glob.glob(os.path.join(REPO, "podtpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
-    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "podtpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "podtpu",
+              "tensorflow", "flatbuffers", "tflite_runtime", "ai_edge_litert")
     assert len(files) > 10
     for path in files:
         for mod in _imported_modules(path):
