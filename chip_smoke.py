@@ -205,7 +205,17 @@ raising on failure:
    check), export s, MB and load s, ms a batch against a float32 ``.pt2``
    and in-process serving; ``cli.export_model --format tflite`` and
    ``cli.test --artifact x.tflite`` on phase 9's ``best`` against
-   ``--ckpt``, both float32 at B=8.
+   ``--ckpt``, both float32 at B=8. Then the quantized files
+   (``export/tflite_quant.py``) of phase 9's ``best`` in float32: int8
+   (calibrated on 4 val batches) and dynamic range serving files at B=1
+   and B=8 read on a fifth val batch, the card's reader against the
+   CPU's on the same file (int8: every int8 code equal, detections paired
+   as above; dynamic: heads within 0.1 of their scale), one suppression
+   launch a call, the heads against the float file's (within 0.1 of
+   their scale, the CPU tests' bound), MB (int8 under half the float
+   file), export s and ms a batch of the float, int8 and dynamic readers;
+   ``cli.export_model --quantize int8`` and ``cli.test --artifact`` on
+   it, one launch a batch, its val mAP beside the float file's.
 
 21. parallel: data parallelism with global BatchNorm through the fused
    stem's kernels, FSDP, and the multi-process run (``parallel/``). Two
@@ -3867,6 +3877,170 @@ def tflite_checks(cfg, flat, dev, fit, images, tmp):
     return launches, rec, checks
 
 
+# the int8 and dynamic files' heads against the float file's, of each
+# head's scale: tests/test_torch_tflite_quant.py::QUANT_SHARE, the bound
+# the CPU tests pin (measured there 0.044 / 0.047)
+TFLITE_QUANT_SHARE = 0.1
+# the layers after which no convolution comes: the heads
+_HEAD_READERS = {"RESHAPE", "TRANSPOSE", "STRIDED_SLICE"}
+
+
+def _head_tensors(f) -> list[int]:
+    """The float file's head convolutions' outputs: each read only by the
+    decode (reshapes and slices), never by an activation or a layer."""
+    readers = {}
+    for name, ins, _, _ in f.ops:
+        for t in ins:
+            readers.setdefault(t, set()).add(name)
+    return [outs[0] for name, _, outs, _ in f.ops if name == "CONV_2D"
+            and readers.get(outs[0], set()) <= _HEAD_READERS]
+
+
+def _quant_run(prog, x, names):
+    """``prog(x)`` with every int8 tensor it makes (on the host) and the
+    tensors named ``names`` (float: dequantized if int8)."""
+    f = prog.file
+    codes, heads = {}, {}
+
+    def observe(t, v):
+        if v.dtype == torch.int8:
+            codes[t] = v.cpu()
+        if f.tensors[t][0] in names:
+            if v.dtype == torch.int8:
+                s, zp, _ = f.quant[t]
+                v = (v.double() - float(zp[0])) * float(s[0])
+            heads[f.tensors[t][0]] = v.double().cpu()
+    out = prog.run([x], observe)
+    return out, codes, heads
+
+
+def tflite_quant_checks(cfg, dev, fit, tmp, float_rec):
+    """Phase 20's quantized TFLite part: YOLOv3-416 from phase 9's
+    ``best`` (float32) as int8 (calibrated on 4 val batches) and dynamic
+    range serving files at B=1 and B=8, written by
+    ``export/tflite_quant.py`` and run by the reader on the card against
+    the reader on the CPU on the same file (int8: every int8 code equal,
+    the detections paired as :func:`_dets_match`; dynamic: the heads
+    within :data:`TFLITE_QUANT_SHARE` of their scale, since its float
+    stem rounds apart on the two devices and moves the next layer's
+    per-image quantization), one suppression launch a reader call, the
+    heads against the float file of the same trace, MB, export s and ms
+    a batch of the three readers; then ``cli.export_model --quantize int8`` and ``cli.test
+    --artifact`` on the int8 file, one launch a batch, its val mAP beside
+    the float file's. Every file reads a fifth val batch. Returns
+    ``(launches, record, checks)``."""
+    from podtpu_torch.cli import eval_trainer
+    from podtpu_torch.cli import export_model as cli_export
+    from podtpu_torch.cli import test as cli_test
+    from podtpu_torch.export import tflite
+
+    fit_cfg = dict(fit["cfg"], compute_dtype="float32", batch_size=8)
+    yaml_path = _write_yaml(fit_cfg, tmp, "export_quant_f32.yaml")
+    model = eval_trainer(fit_cfg, fit["best"], dev).state.model.eval()
+    size = cfg["input_size"]
+    launches, checks, rec = {k: 0 for k in _counts()}, {}, {}
+    for b in (1, 8):
+        shape = (b, size, size, 3)
+        # four val batches calibrate, a fifth is read
+        rep = cli_export._calibration_batches(fit_cfg, shape, 5)
+        if len(rep) != 5:
+            raise AssertionError(f"{len(rep)} val batches of {b}, not 5")
+        rep, x = rep[:4], torch.from_numpy(rep[4]).to(dev)
+        t0 = time.perf_counter()
+        lowered = tflite.lower_model(model, fit_cfg, shape, True)
+        lower_s = time.perf_counter() - t0
+        ffile = os.path.join(tmp, f"best_serving_float_B{b}.tflite")
+        tflite.write_tflite(lowered, ffile)
+        fprog = tflite.load_tflite(ffile, dev)
+        heads = [fprog.file.tensors[t][0] for t in _head_tensors(
+            fprog.file)]
+        _, _, fheads = _quant_run(fprog, x, set(heads))
+        r = {"calibration_batches": len(rep), "lower_s": lower_s,
+             "float_MB": os.path.getsize(ffile) / 2**20, "heads": heads}
+        progs = {"float": fprog}
+        for mode in ("int8", "dynamic"):
+            path = os.path.join(tmp, f"yolov3_serving_{mode}_B{b}.tflite")
+            t0 = time.perf_counter()
+            tflite.write_tflite(lowered, path, mode, rep, dev)
+            m = {"write_s": time.perf_counter() - t0,
+                 "MB": os.path.getsize(path) / 2**20,
+                 "ops": tflite.inspect_tflite(path)["ops"]}
+            prog = progs[mode] = tflite.load_tflite(path, dev)
+            torch.cuda.synchronize()
+            _zero_counts()
+            got, codes, qheads = _quant_run(prog, x, set(heads))
+            torch.cuda.synchronize()
+            one = _counts()
+            launches = _add_counts(launches, one)
+            m["launches_one_call"] = one
+            m["heads_share_vs_float"] = [
+                float((qheads[n] - fheads[n]).abs().max()
+                      / fheads[n].abs().max()) for n in heads]
+            checks[f"tflite_{mode}_B{b}_heads_vs_float"] = (
+                len(heads) == 3 and len(qheads) == 3
+                and max(m["heads_share_vs_float"]) <= TFLITE_QUANT_SHARE)
+            checks[f"tflite_{mode}_B{b}_one_launch"] = (
+                one["greedy_suppress"] == 1 and not any(
+                    v for k, v in one.items() if k.startswith("stem")))
+            on_card = all(t.device.type == "cuda" for t in got)
+            if b == 1:  # the reader on the CPU, on the same file
+                cpu = tflite.load_tflite(path, "cpu")
+                cgot, ccodes, cheads = _quant_run(cpu, x.cpu(), set(heads))
+                same_codes = codes.keys() == ccodes.keys() and all(
+                    torch.equal(codes[t], ccodes[t]) for t in codes)
+                close, stats = _dets_match(tuple(t.cpu() for t in got),
+                                           cgot)
+                share = max(float((qheads[n] - cheads[n]).abs().max()
+                                  / cheads[n].abs().max()) for n in heads)
+                m["card_vs_cpu"] = {"int8_tensors": len(codes),
+                                    "codes_equal": same_codes,
+                                    "heads_share": share, "dets": stats}
+                checks[f"tflite_{mode}_card_vs_cpu"] = on_card and (
+                    same_codes and len(codes) > 0 and close
+                    if mode == "int8" else share <= TFLITE_QUANT_SHARE)
+                del cpu
+            r[mode] = m
+        for mode in ("float", "int8", "dynamic"):
+            r.setdefault(mode, {})["ms_reader"] = cuda_ms(
+                lambda: progs[mode](x), 10)
+        checks[f"tflite_int8_B{b}_size"] = r["int8"]["MB"] < 0.5 * r[
+            "float_MB"]
+        rec[f"B{b}"] = r
+        del progs, fprog, prog, lowered
+    # cli.export_model --quantize int8, then cli.test --artifact on it
+    art = os.path.join(tmp, "best_serving_int8_B8.tflite")
+    t0 = time.perf_counter()
+    cli_export.main(["--cfg", yaml_path, "--ckpt", fit["best"], "--format",
+                     "tflite", "--with-postprocess", "--batch", "8",
+                     "--quantize", "int8", "--calib-batches", "4", "--out",
+                     art, "--device", dev.type])
+    export_s = time.perf_counter() - t0
+    with open(fit_cfg["val_list"]) as f:
+        n_val = len(f.read().split())
+    torch.cuda.synchronize()
+    _zero_counts()
+    got = cli_test.main(["--cfg", yaml_path, "--artifact", art, "--device",
+                         dev.type])
+    torch.cuda.synchronize()
+    test_launches = _counts()
+    launches = _add_counts(launches, test_launches)
+    rec["cli_test"] = {
+        "export_s": export_s, "MB": os.path.getsize(art) / 2**20,
+        "int8_val_mAP": got["val_mAP"],
+        "float_val_mAP": float_rec["cli_test"]["artifact_val_mAP"],
+        "batches": -(-n_val // 8), "launches_test_artifact": test_launches}
+    checks["tflite_int8_cli_test_launches"] = \
+        test_launches["greedy_suppress"] == -(-n_val // 8)
+    checks["tflite_int8_cli_test_mAP_finite"] = \
+        0.0 <= got["val_mAP"] <= 1.0
+    for f in os.listdir(tmp):
+        if f.endswith(".tflite"):
+            os.remove(os.path.join(tmp, f))
+    del model
+    torch.cuda.empty_cache()
+    return launches, rec, checks
+
+
 def export_phase(cfg, flat, dev, card, fit, images, tmp):
     """Phase 20: the export path on YOLOv3-416 with phase 3's weights:
     serving artifacts at B=8 and with a symbolic batch against the
@@ -4077,9 +4251,18 @@ def export_phase(cfg, flat, dev, card, fit, images, tmp):
     tflite_rec["seconds"] = time.perf_counter() - t_tflite
     launches = _add_counts(launches, tflite_launches)
     checks.update(tflite_ok)
+    # the quantized TFLite files, and TFLite's integer arithmetic
+    t_quant = time.perf_counter()
+    quant_launches, quant_rec, quant_ok = tflite_quant_checks(
+        cfg, dev, fit, tmp, tflite_rec)
+    quant_rec["seconds"] = time.perf_counter() - t_quant
+    launches = _add_counts(launches, quant_launches)
+    checks.update(quant_ok)
     emit({"phase": "export", "config": "configs/yolov3_voc.yaml",
           "artifacts": artifacts, "serving_ops": ops,
           "tflite": tflite_rec, "launches_tflite": tflite_launches,
+          "tflite_quant": quant_rec,
+          "launches_tflite_quant": quant_launches,
           "npu": {"forward_ok": report["ok"],
                   "forward_distinct_ops": len(report["ops"]),
                   "serving_unsupported": serving_unsupported,
@@ -4104,7 +4287,14 @@ def export_phase(cfg, flat, dev, card, fit, images, tmp):
                         "file's heads within 2e-5 of their max (TF32 off), "
                         "which a transposed 3x3 filter must exceed; "
                         "cli.test batches as above, val_mAP within 1e-4, "
-                        "in float32"},
+                        "in float32",
+              "tflite_quant": "int8 file, card against CPU reader: every "
+                              "int8 code equal, detections paired as the "
+                              "float32 files; dynamic file, card against "
+                              "CPU: heads within 0.1 of their scale; "
+                              "int8 and dynamic heads within 0.1 of the "
+                              "float file's scale (the CPU tests' bound); "
+                              "int8 file under half the float file"},
           "checks": checks, "launches": launches,
           "seconds": time.perf_counter() - t_phase, "card": card})
     if not all(checks.values()):
@@ -4114,6 +4304,8 @@ def export_phase(cfg, flat, dev, card, fit, images, tmp):
     torch.cuda.empty_cache()
     artifacts["tflite"] = tflite_rec
     artifacts["launches_tflite"] = tflite_launches
+    artifacts["tflite_quant"] = quant_rec
+    artifacts["launches_tflite_quant"] = quant_launches
     return launches, artifacts
 
 
@@ -5459,6 +5651,11 @@ def main() -> int:
             "greedy_suppress"],
         **{f"ms_tflite_reader_B{b}": export_artifacts["tflite"][f"B{b}"][
             "ms_reader"] for b in (1, 8)},
+        "launches_export_tflite_quant": export_artifacts[
+            "launches_tflite_quant"]["greedy_suppress"],
+        **{f"ms_tflite_{m}_reader_B{b}": export_artifacts["tflite_quant"][
+            f"B{b}"][m]["ms_reader"] for b in (1, 8)
+           for m in ("float", "int8", "dynamic")},
         **{f"{k}_retina": retina_suppress[k]
            for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
         "plain_ms": plain_ms,

@@ -4,7 +4,8 @@ port's ``export_model.py``; torch2onnx.py analog).
     python -m podtpu_torch.cli.export_model --cfg configs/yolov3_voc.yaml \\
         [--ckpt ...] --out model.pt2 [--inspect] [--device cpu]
     python -m podtpu_torch.cli.export_model --cfg ... --format tflite \\
-        --with-postprocess --out model.tflite [--fold-bn] [--device cpu]
+        --with-postprocess --out model.tflite [--fold-bn] [--device cpu] \\
+        [--quantize dynamic|int8 [--calib-batches N]]
 
 Options beyond the forward graph:
   --with-postprocess   the full serving unit, forward + decode + NMS (the
@@ -13,17 +14,22 @@ Options beyond the forward graph:
   --validate-npu       check the artifact's operators against the NPU
                        whitelist and fail on any other
   --annotate out.json  write the sanitized per-layer annotation map
-  --quantize int8      static PTQ: calibrate activation scales on val
-                       batches (--calib-batches) and export int8 convs
+  --quantize int8      static PTQ calibrated on val batches
+                       (--calib-batches): int8 convs in a .pt2; with
+                       --format tflite a full-integer int8 file (the model
+                       stays float and the file is calibrated)
+  --quantize dynamic   TFLite's dynamic range (int8 filters, float
+                       compute); --format tflite only
   --batch N|dyn        the batch; ``dyn`` exports a symbolic one (pt2 only)
-  --format             pt2 (``torch.export``) or tflite (a float32
-                       flatbuffer written by ``export/tflite.py``);
-                       savedmodel raises: it is not ported
+  --format             pt2 (``torch.export``) or tflite (a flatbuffer
+                       written by ``export/tflite.py``); savedmodel
+                       raises: it is not ported
 
 A ``.pt2`` runs on the device it was exported on (``--device``, default
 cuda); a ``.tflite`` is device-free, and the port's reader runs it where
-its caller says. ``--format tflite`` refuses ``--batch dyn`` (as
-``podtpu``) and ``--quantize`` (quantized TFLite is not ported).
+its caller says (an int8 file is calibrated by the reader on
+``--device``). ``--format tflite`` refuses ``--batch dyn`` (as
+``podtpu``), and ``--quantize`` refuses it for any format.
 """
 
 from __future__ import annotations
@@ -90,8 +96,9 @@ def main(argv=None):
                     choices=["pt2", "tflite", "savedmodel"])
     ap.add_argument("--quantize", type=str, default=None,
                     choices=["int8", "dynamic"],
-                    help="static PTQ for the .pt2 artifact (int8 convs); "
-                         "'dynamic' is TFLite's (not ported)")
+                    help="int8: static PTQ (int8 convs in a .pt2, a "
+                         "full-integer .tflite); dynamic: TFLite's dynamic "
+                         "range (int8 filters, float compute)")
     ap.add_argument("--calib-batches", type=int, default=8,
                     help="calibration batches for --quantize")
     ap.add_argument("--device", type=str, default=None,
@@ -108,13 +115,9 @@ def main(argv=None):
         if args.batch == "dyn":
             ap.error("--batch dyn is not supported for --format tflite "
                      "(a TFLite artifact takes a static batch)")
-        if args.quantize:
-            from podtpu_torch.export.tflite import QUANTIZE_UNPORTED
-
-            ap.error(f"--format tflite: {QUANTIZE_UNPORTED}")
         if args.annotate or args.validate_npu:
             ap.error("--annotate / --validate-npu read a .pt2 artifact")
-    if args.quantize == "dynamic":
+    if args.quantize == "dynamic" and args.format != "tflite":
         ap.error("--quantize dynamic is tflite-only (--format tflite)")
     if args.batch == "dyn" and args.quantize:
         ap.error("--batch dyn is incompatible with --quantize "
@@ -138,21 +141,25 @@ def main(argv=None):
     batch = None if args.batch == "dyn" else int(args.batch)
     shape = (batch, cfg["input_size"], cfg["input_size"],
              cfg.get("in_channels", 3))
+    rep = None
     if args.quantize == "int8":
-        from podtpu_torch.export.quantize import quantize_for_serving
-
-        quantize_for_serving(model, _calibration_batches(
-            cfg, shape, args.calib_batches))
-        print(f"int8 PTQ: calibrated on {args.calib_batches} batches")
+        rep = _calibration_batches(cfg, shape, args.calib_batches)
+        print(f"int8 PTQ: calibrated on {len(rep)} batches")
     if args.format == "tflite":
         from podtpu_torch.export.tflite import export_tflite, inspect_tflite
 
+        # the model stays float: the file is quantized from its float graph
         path = export_tflite(model, cfg, shape, args.out,
-                             with_postprocess=args.with_postprocess)
+                             with_postprocess=args.with_postprocess,
+                             quantize=args.quantize, rep_batches=rep)
         print(f"exported to {path}")
         if args.inspect:
             print(json.dumps(inspect_tflite(path), indent=2))
         return path
+    if rep is not None:
+        from podtpu_torch.export.quantize import quantize_for_serving
+
+        quantize_for_serving(model, rep)
     if args.with_postprocess:
         path = export_serving(model, cfg, shape, args.out)
     else:

@@ -7,13 +7,13 @@ back ``(dets [B, M, 6], valid [B, M])`` as numpy arrays: ``cli.test
 ``cli.make_pred_file``, ``cli.yolo2coco_pred_file`` and
 ``cli.make_video``. Artifacts are ``torch.export`` programs (``.pt2``,
 ``export/program.py``), which run on the device they were exported on,
-and float32 TFLite files (``.tflite``, ``export/tflite.py``), which the
-port's reader runs on the device it is given (the card by default).
+and TFLite files (``.tflite``, ``export/tflite.py``: float32, dynamic
+range or int8), which the port's reader runs on the device it is given
+(the card by default).
 
 A TF SavedModel is not ported: it is a TensorFlow ``GraphDef`` run by the
 TensorFlow runtime, which the port does not import. A ``.savedmodel`` path
-raises ``NotImplementedError`` saying so; quantized TFLite is refused at
-export (``export/tflite.py::QUANTIZE_UNPORTED``).
+raises ``NotImplementedError`` saying so.
 """
 
 from __future__ import annotations
@@ -22,11 +22,10 @@ import numpy as np
 import torch
 
 TFLITE_UNPORTED = (
-    "SavedModel artifacts and quantized TFLite are not ported: a SavedModel "
-    "is a TensorFlow GraphDef run by the TensorFlow runtime, which the port "
-    "does not import (ROADMAP.md queue 1, item 10c), and quantized TFLite "
-    "needs TFLite's int8 arithmetic in the reader (item 10b); export a "
-    "float32 .tflite or a torch.export program (.pt2) instead")
+    "SavedModel artifacts are not ported: a SavedModel is a TensorFlow "
+    "GraphDef run by the TensorFlow runtime, which the port does not import "
+    "(ROADMAP.md queue 1, item 10c); export a .tflite (float32, dynamic or "
+    "int8) or a torch.export program (.pt2) instead")
 
 
 def _not_serving(artifact: str, outs) -> ValueError:

@@ -32,14 +32,20 @@ Where the file and the port's in-process serving differ:
   ``greedy_suppress``, and so gives the port's answer on the same boxes.
 * A bf16 config exports the float32 graph of its weights (``podtpu``'s
   converter refuses bf16: "failed to legalize operation 'tfl.pad'").
-* Quantized TFLite (``dynamic``, ``int8``) is not ported (ROADMAP.md item
-  10b), nor reading ``podtpu``'s own files (``WHILE``, ``GATHER_ND`` over a
-  loop state: item 10d).
+* Reading ``podtpu``'s own files (``WHILE``, ``GATHER_ND`` over a loop
+  state) is not ported (ROADMAP.md item 10d).
+
+A quantized file (``quantize="dynamic"`` or ``"int8"``,
+``export/tflite_quant.py``) holds int8 tensors with their scales and zero
+points; the reader runs its int8 and hybrid operators with TFLite's
+integer arithmetic (``export/tflite_int8.py``: the int8 products through
+``torch._int_mm`` on the card), and gives the interpreter's int8 codes.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import json
 
 import numpy as np
@@ -48,25 +54,43 @@ import torch.nn.functional as F
 
 from podtpu_torch.export import flatbuf
 from podtpu_torch.export import tflite_schema as S
+from podtpu_torch.export.tflite_int8 import (
+    HYBRID_KERNELS,
+    INT8_KERNELS,
+    conv_pads,
+    same_pads,
+)
+from podtpu_torch.export.tflite_quant import MOVERS
 
 META = "podtpu_torch"
-QUANTIZE_UNPORTED = ("quantized TFLite (--quantize dynamic|int8) is not "
-                     "ported: the reader would need TFLite's int8 "
-                     "arithmetic (ROADMAP.md queue 1, item 10b)")
 
 
 def export_tflite(model: torch.nn.Module, cfg: dict | None, input_shape,
                   path: str, with_postprocess: bool = False,
-                  quantize: str | None = None) -> str:
-    """Write ``model`` (eval mode, weights frozen in) as a float32
-    ``.tflite`` file: the forward, or with ``with_postprocess`` the serving
-    unit of ``cfg`` (forward + decode + NMS). ``input_shape`` is the NHWC
-    input with a static batch."""
+                  quantize: str | None = None, rep_batches=None) -> str:
+    """Write ``model`` (eval mode, weights frozen in) as a ``.tflite``
+    file: the forward, or with ``with_postprocess`` the serving unit of
+    ``cfg`` (forward + decode + NMS). ``input_shape`` is the NHWC input
+    with a static batch.
+
+    ``quantize``: ``None`` = float32; ``"dynamic"`` = int8 filters, float
+    compute; ``"int8"`` = full-integer post-training quantization with
+    float fallback, calibrated on ``rep_batches`` (float32 arrays of
+    ``input_shape``, run through the float file by the reader on the
+    model's device). ``export/tflite_quant.py`` says what each holds."""
+    lowered = lower_model(model, cfg, input_shape, with_postprocess)
+    return write_tflite(lowered, path, quantize, rep_batches,
+                        next(model.parameters()).device)
+
+
+def lower_model(model: torch.nn.Module, cfg: dict | None, input_shape,
+                with_postprocess: bool = False):
+    """The float32 TFLite subgraph of ``model`` (one ``torch.export``) and
+    its metadata, for :func:`write_tflite` (which may write several files
+    of it)."""
     from podtpu_torch.export.program import _export
     from podtpu_torch.export.tflite_lower import lower_program
 
-    if quantize is not None:
-        raise NotImplementedError(QUANTIZE_UNPORTED)
     if input_shape[0] is None or isinstance(input_shape[0], str):
         raise ValueError("a TFLite artifact takes a static batch "
                          "(podtpu refuses --batch dyn for TFLite too)")
@@ -78,14 +102,38 @@ def export_tflite(model: torch.nn.Module, cfg: dict | None, input_shape,
         fn, kind = model, "forward"
     ep, meta = _export(model, fn, input_shape, torch.float32, kind)
     family = (cfg or {}).get("model", type(model).__name__)
-    b = lower_program(ep, family)
+    meta.update(dtype="float32", family=family)
+    meta.pop("device", None)
+    return lower_program(ep, family), meta
+
+
+def write_tflite(lowered, path: str, quantize: str | None = None,
+                 rep_batches=None, device="cuda") -> str:
+    """Write the ``(subgraph, meta)`` of :func:`lower_model` as a float32,
+    ``"dynamic"`` or ``"int8"`` file (:func:`export_tflite`); an int8 file
+    is calibrated by the reader on ``device``. ``lowered`` is left as it
+    was."""
+    from podtpu_torch.export import tflite_quant
+
+    if quantize not in (None,) + tflite_quant.MODES:
+        raise ValueError(f"unknown quantize mode {quantize!r} (expected "
+                         "dynamic | int8)")
+    if quantize == "int8" and rep_batches is None:
+        raise ValueError("int8 quantization needs rep_batches for "
+                         "calibration")
+    b, meta = copy.deepcopy(lowered)
+    if quantize == "dynamic":
+        tflite_quant.dynamic_range(b)
+    elif quantize == "int8":
+        tflite_quant.full_integer(b, tflite_quant.calibrate(
+            b, rep_batches, device))
+    kind = meta["kind"]
     names = ["dets", "valid"] if kind == "serving" else [
         f"head{i}" for i in range(len(b.outputs))]
     for t, name in zip(b.outputs, names):
         b.tensors[t][3] = name
-    meta.update(dtype="float32", family=family, outputs=names)
-    meta.pop("device", None)
-    data = b.serialize(f"podtpu_torch {kind} ({family})",
+    meta.update(outputs=names, quantize=quantize)
+    data = b.serialize(f"podtpu_torch {kind} ({meta['family']})",
                        {META: json.dumps(meta).encode()})
     with open(path, "wb") as f:
         f.write(data)
@@ -97,6 +145,7 @@ def export_tflite(model: torch.nn.Module, cfg: dict | None, input_shape,
 class TFLiteFile:
     """A parsed ``.tflite`` file: ``tensors`` ``(name, shape, type,
     data)`` (data a numpy view of the constant's buffer, or None),
+    ``quant`` the affine parameters of the quantized ones,
     ``ops`` ``(name, inputs, outputs, options)``, the subgraph's
     ``inputs`` and ``outputs`` and the ``meta`` the port wrote."""
 
@@ -121,6 +170,7 @@ class TFLiteFile:
                 "read here (podtpu's own artifacts: ROADMAP.md item 10d)")
         sg = subgraphs[0]
         self.tensors = []
+        self.quant = {}  # tensor -> (scale [n], zero_point [n], axis)
         for t in sg.tables(S.SUBGRAPH["tensors"]):
             shape = t.vector(S.TENSOR["shape"], np.int32)
             shape = tuple(int(d) for d in shape) if shape is not None else ()
@@ -132,6 +182,13 @@ class TFLiteFile:
             data = None
             if buf is not None and buf.size:
                 data = buf.view(S.NUMPY[ttype]).reshape(shape)
+            q = t.table(S.TENSOR["quantization"])
+            scale = None if q is None else q.vector(
+                S.QUANTIZATION["scale"], np.float32)
+            if scale is not None and scale.size:
+                self.quant[len(self.tensors)] = (
+                    scale, q.vector(S.QUANTIZATION["zero_point"], np.int64),
+                    q.scalar(S.QUANTIZATION["quantized_dimension"], "int32"))
             self.tensors.append((t.string(S.TENSOR["name"]), shape, ttype,
                                  data))
         self.ops = []
@@ -178,15 +235,31 @@ def read_tflite(path: str) -> TFLiteFile:
         return TFLiteFile(f.read())
 
 
+def _quant_info(q) -> dict:
+    scale, zp, dim = q
+    if scale.size == 1:
+        return {"scale": float(scale[0]), "zero_point": int(zp[0])}
+    return {"channels": int(scale.size), "axis": int(dim),
+            "scale_min": float(scale.min()), "scale_max": float(scale.max())}
+
+
 def inspect_tflite(path: str) -> dict:
-    """Op histogram, input and output specs and metadata of a ``.tflite``
-    file (``export/program.py::inspect_program`` for ``.pt2``)."""
+    """Op histogram, input and output specs, each tensor's type and
+    quantization, and the metadata of a ``.tflite`` file
+    (``export/program.py::inspect_program`` for ``.pt2``)."""
     f = read_tflite(path)
     ops = collections.Counter(op[0] for op in f.ops)
     info = {"in_specs": [f.spec(t) for t in f.inputs],
             "out_specs": [f.spec(t) for t in f.outputs],
             "out_names": [f.tensors[t][0] for t in f.outputs],
             "ops": dict(sorted(ops.items(), key=lambda kv: -kv[1])),
+            "tensor_types": dict(collections.Counter(
+                t[2] for t in f.tensors)),
+            "tensors": [{"name": name, "type": ttype, "shape": list(shape),
+                         **({"quantization": _quant_info(f.quant[i])}
+                            if i in f.quant else {})}
+                        for i, (name, shape, ttype, _) in
+                        enumerate(f.tensors)],
             "version": f.version}
     info.update(f.meta)
     return info
@@ -194,15 +267,8 @@ def inspect_tflite(path: str) -> dict:
 
 # ---- the reader -------------------------------------------------------------
 
-_DTYPE = {"FLOAT32": torch.float32, "INT32": torch.int32, "BOOL": torch.bool}
-
-
-def _same_pads(size: int, k: int, stride: int, dilation: int):
-    """TFLite's SAME padding of one axis: (before, after)."""
-    eff = (k - 1) * dilation + 1
-    out = -(-size // stride)
-    total = max((out - 1) * stride + eff - size, 0)
-    return total // 2, total - total // 2
+_DTYPE = {"FLOAT32": torch.float32, "INT32": torch.int32, "BOOL": torch.bool,
+          "INT8": torch.int8}
 
 
 def _activation(code: int):
@@ -326,11 +392,7 @@ def _k_conv(p, name, ins, outs, o):
     kh, kw = w.shape[2:]
     sh, sw = o["stride_h"], o["stride_w"]
     dh, dw = o["dilation_h_factor"], o["dilation_w_factor"]
-    if o["padding"] == S.PADDING["SAME"]:
-        top, bottom = _same_pads(h, kh, sh, dh)
-        left, right = _same_pads(wd, kw, sw, dw)
-    else:
-        top = bottom = left = right = 0
+    top, bottom, left, right = conv_pads(o, h, wd, kh, kw)
     act = _fused(o)
     if top == bottom and left == right:
         def run(v):
@@ -352,17 +414,21 @@ def _k_max_pool(p, name, ins, outs, o):
     kh, kw = o["filter_height"], o["filter_width"]
     sh, sw = o["stride_h"], o["stride_w"]
     if o["padding"] == S.PADDING["SAME"]:
-        top, bottom = _same_pads(h, kh, sh, 1)
-        left, right = _same_pads(w, kw, sw, 1)
+        top, bottom = same_pads(h, kh, sh, 1)
+        left, right = same_pads(w, kw, sw, 1)
     else:
         top = bottom = left = right = 0
     act = _fused(o)
+    dtype = _DTYPE[p.f.tensors[out][2]]
 
     def run(v):
-        x = v[x_t].permute(0, 3, 1, 2)
+        # int8 codes pool as float32 (exact), which torch pools on both
+        # devices
+        x = v[x_t].permute(0, 3, 1, 2).float()
         if top or bottom or left or right:
             x = F.pad(x, (left, right, top, bottom), value=-float("inf"))
-        v[out] = act(F.max_pool2d(x, (kh, kw), (sh, sw))).permute(0, 2, 3, 1)
+        v[out] = act(F.max_pool2d(x, (kh, kw), (sh, sw))).permute(
+            0, 2, 3, 1).to(dtype)
     return run
 
 
@@ -373,10 +439,12 @@ def _k_resize(p, name, ins, outs, o):
                                   "align_corners or half_pixel_centers")
     size = tuple(int(s) for s in p.value(ins[1]))
     x_t, out = ins[0], outs[0]
+    dtype = _DTYPE[p.f.tensors[out][2]]
 
     def run(v):
-        v[out] = F.interpolate(v[x_t].permute(0, 3, 1, 2), size=size,
-                               mode="nearest").permute(0, 2, 3, 1)
+        x = v[x_t].permute(0, 3, 1, 2).float()
+        v[out] = F.interpolate(x, size=size, mode="nearest").permute(
+            0, 2, 3, 1).to(dtype)
     return run
 
 
@@ -510,7 +578,12 @@ def _k_pad(p, name, ins, outs, o):
     flat = []
     for before, after in pads[::-1]:
         flat += [int(before), int(after)]
-    value = float(p.value(ins[2]).reshape(())) if len(ins) > 2 else 0.0
+    if len(ins) > 2:
+        value = p.value(ins[2]).reshape(()).item()
+    elif p.f.tensors[outs[0]][2] == "INT8":
+        value = int(p.f.quant[outs[0]][1][0])  # int8 pads with its zp
+    else:
+        value = 0.0
     a, out = ins[0], outs[0]
 
     def run(v):
@@ -579,6 +652,24 @@ def _nms_group(p, group):
     return run
 
 
+def _kernel_for(f: TFLiteFile, name: str, ins):
+    """The kernel of an operator on its input types: TFLite's integer
+    arithmetic (``export/tflite_int8.py``) where the first input is int8,
+    its hybrid kernels where a float input meets an int8 filter, else the
+    float one, which the operators that only move bytes (reshape, slice,
+    pad, pool: ``tflite_quant.MOVERS``) also run on int8 codes."""
+    types = [f.tensors[t][2] for t in ins if t >= 0]
+    if name in ("QUANTIZE", "DEQUANTIZE"):
+        return INT8_KERNELS[name]
+    if name in HYBRID_KERNELS and types[:2] == ["FLOAT32", "INT8"]:
+        return HYBRID_KERNELS[name]
+    if name in INT8_KERNELS and types[0] == "INT8":
+        return INT8_KERNELS[name]
+    if "INT8" in types and name not in MOVERS:  # their kernels move bytes
+        return None
+    return KERNELS.get(name)
+
+
 def _nms_key(p, ins) -> tuple:
     return (p.shape(ins[0]),) + tuple(
         p.value(t).tobytes() for t in ins[2:6])
@@ -597,7 +688,7 @@ class TFLiteProgram:
         self.out_names = [f.tensors[t][0] for t in f.outputs]
         self.batch = f.tensors[f.inputs[0]][1][0] if f.inputs else None
         plan = _Plan(f, self.device)
-        self._steps = []
+        self._steps, self._made = [], []  # the kernels, what each makes
         reads = []  # the tensors each step reads
         made = set(f.inputs)
         ops = f.ops
@@ -613,15 +704,18 @@ class TFLiteProgram:
                     group_outs.update(ops[i][2])
                     i += 1
                 self._steps.append(_nms_group(plan, group))
+                self._made.append(sorted(group_outs))
                 reads.append({t for g in group for t in g[1]})
                 made.update(group_outs)
                 continue
-            kernel = KERNELS.get(name)
+            kernel = _kernel_for(f, name, ins)
             if kernel is None:
                 raise NotImplementedError(
-                    f"TFLite operator {name} is not run here "
-                    "(podtpu_torch/export/tflite.py)")
+                    f"TFLite operator {name} on "
+                    f"{[f.tensors[t][2] for t in ins if t >= 0]} is not run "
+                    "here (podtpu_torch/export/tflite.py)")
             self._steps.append(kernel(plan, name, ins, outs, o))
+            self._made.append(outs)
             reads.append(set(ins))
             made.update(outs)
             i += 1
@@ -640,8 +734,14 @@ class TFLiteProgram:
         if missing:
             raise ValueError(f"outputs {missing} are computed by no operator")
 
-    @torch.inference_mode()
     def __call__(self, *xs):
+        return self.run(xs)
+
+    @torch.inference_mode()
+    def run(self, xs, observe=None):
+        """The outputs for inputs ``xs``; ``observe(t, value)`` sees each
+        input and each computed tensor ``t`` as it is made (the int8
+        export's calibration)."""
         f = self.file
         if len(xs) != len(f.inputs):
             raise ValueError(f"{len(f.inputs)} inputs expected, got {len(xs)}")
@@ -655,8 +755,13 @@ class TFLiteProgram:
                 raise ValueError(f"input {f.tensors[t][0]} must be {want}, "
                                  f"got {tuple(x.shape)}")
             v[t] = x.to(self.device, _DTYPE[f.tensors[t][2]])
-        for step, free in zip(self._steps, self._free):
+            if observe is not None:
+                observe(t, v[t])
+        for step, made, free in zip(self._steps, self._made, self._free):
             step(v)
+            if observe is not None:
+                for t in made:
+                    observe(t, v[t])
             for t in free:
                 v[t] = None
         outs = tuple(v[t] for t in f.outputs)

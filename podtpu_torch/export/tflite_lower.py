@@ -59,7 +59,8 @@ from podtpu_torch.export.program import op_name
 
 _FLOATS = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
 _INTS = (torch.int64, torch.int32, torch.int16, torch.int8, torch.uint8)
-NP_TYPE = {"FLOAT32": np.float32, "INT32": np.int32, "BOOL": np.bool_}
+NP_TYPE = {"FLOAT32": np.float32, "INT32": np.int32, "BOOL": np.bool_,
+           "INT8": np.int8}
 
 # a logical NCHW axis -> its place in the NHWC tensor
 _PHYS_AXIS = (0, 3, 1, 2)
@@ -94,7 +95,12 @@ def _np_const(value, ttype: str | None = None) -> np.ndarray:
 class Builder:
     """One TFLite subgraph and its buffers, as it is lowered: tensors
     ``[shape, type, buffer, name]`` (buffer 0 is the empty sentinel),
-    operators ``[name, inputs, outputs, options]``."""
+    operators ``[name, inputs, outputs, options]``. An int8 or int32
+    tensor of a quantized file has its affine parameters in :attr:`quant`
+    (``(scale float32 [n], zero_point int64 [n], quantized_dimension)``,
+    n = 1 per tensor or the channel count), and an operator that runs on
+    such tensors its version in :attr:`versions` (the file's version of an
+    operator code is the largest one asked)."""
 
     def __init__(self):
         self.tensors: list[list] = []
@@ -102,28 +108,33 @@ class Builder:
         self.ops: list[list] = []
         self.inputs: list[int] = []
         self.outputs: list[int] = []
+        self.quant: dict[int, tuple] = {}
+        self.versions: dict[str, int] = {}
         self._small: dict = {}
 
     def tensor(self, shape, ttype: str, name: str | None = None,
-               buffer: int = 0) -> int:
+               buffer: int = 0, quant: tuple | None = None) -> int:
         self.tensors.append([tuple(int(d) for d in shape), ttype, buffer,
                              name or f"t{len(self.tensors)}"])
+        if quant is not None:
+            self.quant[len(self.tensors) - 1] = quant
         return len(self.tensors) - 1
 
     def const(self, value, ttype: str | None = None,
-              name: str | None = None) -> int:
+              name: str | None = None, quant: tuple | None = None) -> int:
         """A constant tensor; small ones are shared by value."""
         arr = _np_const(value, ttype)
         ttype = {np.float32: "FLOAT32", np.int32: "INT32",
-                 np.bool_: "BOOL"}[arr.dtype.type]
+                 np.bool_: "BOOL", np.int8: "INT8"}[arr.dtype.type]
         key = None
         if arr.size <= 64:
-            key = (ttype, arr.shape, arr.tobytes())
+            key = (ttype, arr.shape, arr.tobytes(), None if quant is None
+                   else tuple(np.asarray(q).tobytes() for q in quant))
             if key in self._small:
                 return self._small[key]
         self.buffers.append(arr)
         t = self.tensor(arr.shape, ttype, name or f"const{len(self.buffers)}",
-                        len(self.buffers) - 1)
+                        len(self.buffers) - 1, quant)
         if key is not None:
             self._small[key] = t
         return t
@@ -171,6 +182,8 @@ class Builder:
                 buf = len(bufs) - 1
             tensors.append([shape, ttype, buf, name])
         self.tensors, self.buffers = tensors, bufs
+        self.quant = {remap[t]: q for t, q in self.quant.items()
+                      if t in remap}
         self._small = {}
         for op in self.ops:
             op[1] = [remap[t] if t >= 0 else t for t in op[1]]
@@ -187,8 +200,8 @@ class Builder:
         codes = [F.Table({
             S.OPERATOR_CODE["deprecated_builtin_code"]: F.Scalar(
                 "int8", min(S.BUILTIN[n], S.PLACEHOLDER_FOR_GREATER_OP_CODES)),
-            S.OPERATOR_CODE["version"]: F.Scalar("int32",
-                                                 S.OP_VERSION.get(n, 1)),
+            S.OPERATOR_CODE["version"]: F.Scalar("int32", max(
+                S.OP_VERSION.get(n, 1), self.versions.get(n, 1))),
             S.OPERATOR_CODE["builtin_code"]: F.Scalar("int32", S.BUILTIN[n]),
         }) for n in names]
         tensors = [F.Table({
@@ -196,8 +209,9 @@ class Builder:
             S.TENSOR["type"]: F.Scalar("int8", S.TENSOR_TYPE[ttype]),
             S.TENSOR["buffer"]: F.Scalar("uint32", buf),
             S.TENSOR["name"]: F.String(name),
+            S.TENSOR["quantization"]: self._quantization(t),
             S.TENSOR["has_rank"]: F.Scalar("bool", True),
-        }) for shape, ttype, buf, name in self.tensors]
+        }) for t, (shape, ttype, buf, name) in enumerate(self.tensors)]
         ops = []
         for name, ins, outs, options in self.ops:
             fields = {
@@ -244,6 +258,16 @@ class Builder:
             S.MODEL["metadata"]: meta or None,
         })
         return F.serialize(model, S.IDENTIFIER)
+
+    def _quantization(self, t: int):
+        if t not in self.quant:
+            return None
+        scale, zero_point, dim = self.quant[t]
+        Q = S.QUANTIZATION
+        return flatbuf.Table({
+            Q["scale"]: flatbuf.Vector(scale, np.float32),
+            Q["zero_point"]: flatbuf.Vector(zero_point, np.int64),
+            Q["quantized_dimension"]: flatbuf.Scalar("int32", dim)})
 
 
 def _channel_vector(arr: np.ndarray | None, c: int) -> np.ndarray | None:

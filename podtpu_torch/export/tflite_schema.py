@@ -23,7 +23,12 @@ OPERATOR_CODE = {"deprecated_builtin_code": 0, "custom_code": 1,
                  "version": 2, "builtin_code": 3}
 SUBGRAPH = {"tensors": 0, "inputs": 1, "outputs": 2, "operators": 3,
             "name": 4}
-TENSOR = {"shape": 0, "type": 1, "buffer": 2, "name": 3, "has_rank": 8}
+TENSOR = {"shape": 0, "type": 1, "buffer": 2, "name": 3, "quantization": 4,
+          "has_rank": 8}
+# the affine quantization of a tensor: real = scale * (q - zero_point),
+# per tensor (one scale) or per channel along quantized_dimension
+QUANTIZATION = {"min": 0, "max": 1, "scale": 2, "zero_point": 3,
+                "details_type": 4, "quantized_dimension": 6}
 BUFFER = {"data": 0}
 OPERATOR = {"opcode_index": 0, "inputs": 1, "outputs": 2,
             "builtin_options_type": 3, "builtin_options": 4}
@@ -31,16 +36,18 @@ OPERATOR = {"opcode_index": 0, "inputs": 1, "outputs": 2,
 # builtin codes above 127 store this in the int8 deprecated field
 PLACEHOLDER_FOR_GREATER_OP_CODES = 127
 
-TENSOR_TYPE = {"FLOAT32": 0, "INT32": 2, "BOOL": 6}
+TENSOR_TYPE = {"FLOAT32": 0, "INT32": 2, "BOOL": 6, "INT8": 9}
 TENSOR_TYPE_NAME = {v: k for k, v in TENSOR_TYPE.items()}
 # numpy dtype of each TensorType
-NUMPY = {"FLOAT32": "float32", "INT32": "int32", "BOOL": "bool"}
+NUMPY = {"FLOAT32": "float32", "INT32": "int32", "BOOL": "bool",
+         "INT8": "int8"}
 
 PADDING = {"SAME": 0, "VALID": 1}
 ACTIVATION_NONE = 0
 
 BUILTIN = {
-    "ADD": 0, "CONCATENATION": 2, "CONV_2D": 3, "FULLY_CONNECTED": 9,
+    "ADD": 0, "CONCATENATION": 2, "CONV_2D": 3, "DEQUANTIZE": 6,
+    "FULLY_CONNECTED": 9,
     "LOGISTIC": 14, "MAX_POOL_2D": 17, "MUL": 18, "RELU": 19, "RESHAPE": 22,
     "TANH": 28, "PAD": 34, "TRANSPOSE": 39, "SUB": 41, "DIV": 42,
     "STRIDED_SLICE": 45, "EXP": 47, "TOPK_V2": 48, "CAST": 53,
@@ -48,13 +55,25 @@ BUILTIN = {
     "GREATER": 61, "EQUAL": 71, "LOG": 73, "REDUCE_MAX": 82, "PACK": 83,
     "LOGICAL_OR": 84, "LOGICAL_AND": 86, "LOGICAL_NOT": 87, "UNPACK": 88,
     "REDUCE_ANY": 91, "RESIZE_NEAREST_NEIGHBOR": 97, "LEAKY_RELU": 98,
-    "ABS": 101, "GATHER_ND": 107, "NON_MAX_SUPPRESSION_V5": 121,
+    "ABS": 101, "GATHER_ND": 107, "QUANTIZE": 114,
+    "NON_MAX_SUPPRESSION_V5": 121,
     "SELECT_V2": 123, "BROADCAST_TO": 130,
 }
 BUILTIN_NAME = {v: k for k, v in BUILTIN.items()}
 # the operator version written (1 unless TFLite registers the op only
 # from a later one)
 OP_VERSION = {"BROADCAST_TO": 2}
+# the versions of an operator that runs on int8 tensors (full integer) or
+# on a float input with an int8 filter (hybrid, the dynamic range files),
+# as TensorFlow 2.21's converter writes them for the same operators
+# (read from its int8 and dynamic-range files of small models; it writes
+# LEAKY_RELU and RESHAPE at 1 in both, and RESIZE_NEAREST_NEIGHBOR without
+# half-pixel centres takes 2 for int8 in its versioning rules)
+INT8_OP_VERSION = {"QUANTIZE": 1, "DEQUANTIZE": 2, "CONV_2D": 3,
+                   "FULLY_CONNECTED": 4, "ADD": 2, "CONCATENATION": 2,
+                   "MAX_POOL_2D": 2, "PAD": 2, "PADV2": 2,
+                   "STRIDED_SLICE": 2, "RESIZE_NEAREST_NEIGHBOR": 2}
+HYBRID_OP_VERSION = {"CONV_2D": 5, "FULLY_CONNECTED": 12}
 
 # options table -> (BuiltinOptions union code, {field: (slot, kind, default)})
 OPTIONS = {
@@ -71,7 +90,8 @@ OPTIONS = {
     "FullyConnectedOptions": (8, {
         "fused_activation_function": (0, "int8", 0),
         "weights_format": (1, "int8", 0), "keep_num_dims": (2, "bool",
-                                                            False)}),
+                                                            False),
+        "asymmetric_quantize_inputs": (3, "bool", False)}),
     "ConcatenationOptions": (10, {
         "axis": (0, "int32", 0), "fused_activation_function":
         (1, "int8", 0)}),
@@ -136,4 +156,5 @@ OP_OPTIONS = {
     "GATHER_ND": "GatherNdOptions",
     "NON_MAX_SUPPRESSION_V5": "NonMaxSuppressionV5Options",
     "SELECT_V2": "SelectV2Options", "BROADCAST_TO": "BroadcastToOptions",
+    "QUANTIZE": None, "DEQUANTIZE": None,
 }

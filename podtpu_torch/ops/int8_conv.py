@@ -17,6 +17,12 @@ which XLA lowers outside any Pallas kernel).
 
 There is no float fallback: a CUDA tensor goes to ``_int_mm`` or the call
 raises.
+
+The quantized TFLite reader (``export/tflite_int8.py``) takes the same
+route: :func:`int8_im2col_nhwc` pads with a value of its caller's (the
+input's zero point, whose taps then add nothing once the zero point's
+term is taken off; 0 here) and :func:`int8_matmul` is the product,
+``_int_mm`` on the card and the float64 one on the CPU.
 """
 
 from __future__ import annotations
@@ -41,24 +47,54 @@ def int8_conv2d_reference(x: torch.Tensor, w: torch.Tensor, stride: int,
     return acc.to(torch.int32)
 
 
-def int8_im2col(x: torch.Tensor, k: int, stride: int, padding: int
-                ) -> tuple[torch.Tensor, int, int]:
-    """x int8 NCHW -> ([B * Ho * Wo, k * k * C] int8 in (row, column,
-    channel) order, Ho, Wo)."""
-    b, c, h, w = x.shape
-    xh = x.permute(0, 2, 3, 1)
-    if padding:
-        xh = F.pad(xh, (0, 0, padding, padding, padding, padding))
-    ho = (h + 2 * padding - k) // stride + 1
-    wo = (w + 2 * padding - k) // stride + 1
-    if k == 1 and stride == 1:
-        cols = xh
+def int8_im2col_nhwc(x: torch.Tensor, kh: int, kw: int, stride, dilation,
+                     pads, pad_value) -> tuple[torch.Tensor, int, int]:
+    """x int8 NHWC -> ([B * Ho * Wo, kh * kw * C] int8 in (row, column,
+    channel) order, Ho, Wo). ``pads`` is (top, bottom, left, right);
+    ``pad_value`` an int or a [B] tensor (one value an image)."""
+    b, h, w, c = x.shape
+    (sh, sw), (dh, dw) = stride, dilation
+    top, bottom, left, right = pads
+    if top or bottom or left or right:
+        fill = torch.as_tensor(pad_value, dtype=x.dtype, device=x.device)
+        xp = fill.reshape(-1, 1, 1, 1).expand(
+            b, h + top + bottom, w + left + right, c).clone()
+        xp[:, top:top + h, left:left + w] = x
+        x = xp
+    hp, wp = x.shape[1:3]
+    ho = (hp - dh * (kh - 1) - 1) // sh + 1
+    wo = (wp - dw * (kw - 1) - 1) // sw + 1
+    if kh == kw == sh == sw == 1:
+        cols = x
     else:
         cols = torch.cat([
-            xh[:, di:di + stride * (ho - 1) + 1:stride,
-               dj:dj + stride * (wo - 1) + 1:stride, :]
-            for di in range(k) for dj in range(k)], dim=-1)
-    return cols.reshape(b * ho * wo, k * k * c), ho, wo
+            x[:, di * dh:di * dh + sh * (ho - 1) + 1:sh,
+              dj * dw:dj * dw + sw * (wo - 1) + 1:sw, :]
+            for di in range(kh) for dj in range(kw)], dim=-1)
+    return cols.reshape(b * ho * wo, kh * kw * c), ho, wo
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a int8 [M, K] x b int8 [N, K] -> a b^T int32 [M, N]: one
+    ``torch._int_mm`` on a CUDA tensor (the rows, the depth and the width
+    padded with zeros to its shape rules), a float64 product on a CPU
+    tensor (exact: every partial sum is an integer below 2^53)."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"int8_matmul takes int8 tensors, got {a.dtype} "
+                        f"and {b.dtype}")
+    if a.device.type == "cpu":
+        return (a.double() @ b.double().t()).to(torch.int32)
+    if a.device.type != "cuda":
+        raise ValueError(f"int8_matmul takes CPU or CUDA tensors, got "
+                         f"{a.device}")
+    (m, depth), n = a.shape, b.shape[0]
+    mp, dp, np_ = max(m, _MIN_ROWS), _round_up(depth, _ALIGN), \
+        _round_up(n, _ALIGN)
+    if (mp, dp) != (m, depth):
+        a = F.pad(a, (0, dp - depth, 0, mp - m))
+    if (np_, dp) != (n, depth):
+        b = F.pad(b, (0, dp - depth, 0, np_ - n))
+    return torch._int_mm(a.contiguous(), b.contiguous().t())[:m, :n]
 
 
 def int8_conv2d_cuda(x: torch.Tensor, w: torch.Tensor, stride: int,
@@ -70,18 +106,11 @@ def int8_conv2d_cuda(x: torch.Tensor, w: torch.Tensor, stride: int,
                          f"{x.device}")
     o, _, k, _ = w.shape
     b = x.shape[0]
-    cols, ho, wo = int8_im2col(x, k, stride, padding)
-    m, depth = cols.shape
-    mp, dp, op = max(m, _MIN_ROWS), _round_up(depth, _ALIGN), \
-        _round_up(o, _ALIGN)
-    if (mp, dp) != (m, depth):
-        cols = F.pad(cols, (0, dp - depth, 0, mp - m))
-    wm = w.permute(0, 2, 3, 1).reshape(o, depth)
-    if (op, dp) != (o, depth):
-        wm = F.pad(wm, (0, dp - depth, 0, op - o))
-    acc = torch._int_mm(cols.contiguous(), wm.contiguous().t())
-    acc = acc[:m, :o].reshape(b, ho, wo, o)
-    return acc.permute(0, 3, 1, 2)
+    cols, ho, wo = int8_im2col_nhwc(x.permute(0, 2, 3, 1), k, k,
+                                    (stride, stride), (1, 1),
+                                    (padding,) * 4, 0)
+    acc = int8_matmul(cols, w.permute(0, 2, 3, 1).reshape(o, cols.shape[1]))
+    return acc.reshape(b, ho, wo, o).permute(0, 3, 1, 2)
 
 
 def int8_conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,

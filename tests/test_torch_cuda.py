@@ -691,3 +691,58 @@ def test_exported_program_launches_the_suppression_kernel(cuda, tmp_path):
     assert greedy_suppress.launches == before + 1
     assert torch.equal(keep.cpu(), greedy_suppress_reference(boxes, valid,
                                                              0.45))
+
+
+@pytest.mark.cuda
+def test_int8_tflite_reader_on_the_card_gives_the_cpu_codes(cuda, tmp_path):
+    """A YOLOv3 int8 serving file at 64 px (seeded weights, calibrated on
+    two batches): the reader on the card makes every int8 tensor the CPU
+    reader makes, bit for bit (``torch._int_mm`` against the float64
+    product), the same valid masks, each detection paired with one of the
+    CPU's (score within 1e-4, box within 1e-4 of its size), and one
+    suppression launch a call."""
+    from podtpu_torch.export.tflite import export_tflite, load_tflite
+    from podtpu_torch.models.factory import build_model
+
+    cfg = dict(model="yolov3", num_classes=3, input_size=64,
+               compute_dtype="float32", conf_threshold=0.25,
+               nms_iou_threshold=0.45, top_k_candidates=512,
+               max_detections=100, anchors=[
+                   [10, 13], [16, 30], [33, 23], [30, 61], [62, 45],
+                   [59, 119], [116, 90], [156, 198], [373, 326]])
+    torch.manual_seed(5)
+    model = build_model(cfg, "cpu").eval()
+    rng = np.random.default_rng(5)
+    x, *rep = [rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+               for _ in range(3)]
+    path = export_tflite(model, cfg, (2, 64, 64, 3),
+                         str(tmp_path / "q.tflite"), with_postprocess=True,
+                         quantize="int8", rep_batches=rep)
+    runs = {}
+    for key, dev in (("cpu", "cpu"), ("card", cuda)):
+        codes = {}
+        before = greedy_suppress.launches
+        out = load_tflite(path, dev).run(
+            [torch.from_numpy(x)], lambda t, v: codes.__setitem__(t, v.cpu())
+            if v.dtype == torch.int8 else None)
+        torch.cuda.synchronize()
+        runs[key] = (codes, [o.cpu() for o in out],
+                     greedy_suppress.launches - before)
+    (cc, (cd, cv), _), (gc, (gd, gv), launches) = runs["cpu"], runs["card"]
+    assert cc.keys() == gc.keys() and len(cc) > 30
+    for t in cc:
+        assert torch.equal(cc[t], gc[t]), t
+    assert launches == 1
+    assert torch.equal(cv, gv)
+    # the float decode rounds apart on the two devices (exp, sigmoid), so
+    # detections whose scores tie within rounding may come in either order
+    for g, c, v in zip(gd, cd, cv):
+        free = torch.ones(int(v.sum()), dtype=torch.bool)
+        want = c[v].double()
+        for row in g[v].double():
+            box = ((want[:, :4] - row[:4]).abs()
+                   / want[:, :4].abs().clamp_min(1.0)).amax(-1)
+            fits = free & (want[:, 5] == row[5]) & (box <= 1e-4) & (
+                (want[:, 4] - row[4]).abs() <= 1e-4)
+            assert fits.any(), row
+            free[int(fits.int().argmax())] = False

@@ -13,154 +13,46 @@ Without g++ the tests skip.
 """
 
 import ctypes
-import os
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
 from podtpu_torch.ops.kernels import stem_kernel as sk
+from tests.stem_mock_common import (  # noqa: F401 (lib is a fixture)
+    ROWS,
+    SAVED_BWD,
+    _bwd,
+    _emit,
+    _fn,
+    _operands,
+    _rel,
+    _stats,
+    cases,
+    check_backward,
+    check_forward,
+    lib,
+)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(ROOT, "podtpu_torch", "csrc", "stem_fused.cu")
-MOCK = os.path.join(ROOT, "tools", "cuda_mock")
-ROWS = 16        # rows of the partial-sum buffer: more than the mock's grid
-# one tile per image; ragged 3 x 3 tiles; 448 px wide (YOLOv1): 14 column
-# tiles of 16 pooled columns
-SHAPES = [(2, 16, 24), (3, 40, 70), (1, 16, 448)]
-# sums then dW of the two backward kernels on _saved_case(), from the mocked
-# kernels as they stood before the conv core became functions of its own
-SAVED_BWD = os.path.join(ROOT, "tests", "test_torch_stem_mock_bwd.npy")
-
-
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernels against the CUDA mock")
-    out = str(tmp_path_factory.mktemp("cuda_mock") / "stem_fused_mock.so")
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-pthread",
-                    "-shared", "-fPIC", "-x", "c++", "-I", MOCK, "-o", out,
-                    SOURCE], check=True, capture_output=True, timeout=300)
-    return ctypes.CDLL(out)
-
-
-def _fn(lib, name):
-    fn = getattr(lib, f"podtpu_stem_{name}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = sk._ARGTYPES[name]
-    return fn
+# the float32 cases and the first shape's bf16 ones. The bf16 ones at the
+# other two shapes, the same bits twice, every pool window and the halo
+# take minutes on the mock's threads beside the other mocked files, and
+# run in files of their own: tests/test_torch_stem_mock_{bf16,bwd_bf16,
+# windows,halo}.py
+FWD = cases("shape0-dtype0", "shape0-dtype1", "shape1-dtype0", "shape2-dtype0")
+BWD = cases("shape0-dtype0", "shape0-dtype1", "shape1-dtype0", "shape2-dtype0")
 
 
-def _call(lib, name, *args):
-    assert _fn(lib, name)(*args) == 0
-
-
-def _operands(shape, dtype, seed=5):
-    b, h, w = shape
-    r = np.random.default_rng(seed)
-    as_t = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
-    x = as_t(r.random((b, h, w, 3))).to(dtype)
-    wt = as_t(r.normal(0.0, np.sqrt(2.0 / 27), (3, 3, 3, 32)))
-    scale, bias = as_t(r.uniform(0.5, 1.5, 32)), as_t(r.normal(0, 0.1, 32))
-    g = as_t(r.normal(0, 1, (b, h // 2, w // 2, 32))).to(dtype)
-    n = b * h * w
-    s = sk.stem_stats_reference(x, wt)
-    mean = s[0] / n
-    var = (s[1] / n - mean * mean).clamp_min(0.0)
-    rinv = torch.rsqrt(var + 1e-5)
-    inv = rinv * scale
-    mul, add = inv.to(dtype).float(), (bias - mean * inv).to(dtype).float()
-    u = sk.stem_bwd_sums_reference(x, wt, mul, add, mean, rinv, g)
-    return x, wt, g, (mul, add, mean, rinv, inv, u[0] / n, u[1] / n), s, u
-
-
-def _bwd(lib, name, x, wt, vecs, g, cols, halo=0):
-    b, h, w, _ = x.shape
-    h -= 2 * halo
-    partials = torch.empty((ROWS, cols))
-    out = torch.empty((cols,))
-    wk, vec = sk._wk(wt, x.dtype), sk._vec7(*vecs)
-    _call(lib, name, x.data_ptr(), wk.data_ptr(), vec.data_ptr(),
-          g.data_ptr(), partials.data_ptr(), ROWS, out.data_ptr(), b, h, w,
-          int(x.dtype == torch.bfloat16), halo, None)
-    return out
-
-
-def _stats(lib, x, wt, halo=0):
-    b, h, w, _ = x.shape
-    h -= 2 * halo
-    partials, out = torch.empty((ROWS, 64)), torch.empty((64,))
-    wk = sk._wk(wt, x.dtype)
-    _call(lib, "stats", x.data_ptr(), wk.data_ptr(), partials.data_ptr(), ROWS,
-          out.data_ptr(), b, h, w, int(x.dtype == torch.bfloat16), halo, None)
-    return out.view(2, 32)
-
-
-def _emit(lib, x, wt, mul, add, out=None, halo=0):
-    b, h, w, _ = x.shape
-    h -= 2 * halo
-    if out is None:
-        out = torch.empty((b, h // 2, w // 2, 32), dtype=x.dtype)
-    wk, vec = sk._wk(wt, x.dtype), torch.stack([mul, add]).contiguous()
-    _call(lib, "emit", x.data_ptr(), wk.data_ptr(), vec.data_ptr(),
-          out.data_ptr(), b, h, w, int(x.dtype == torch.bfloat16), halo, None)
-    return out
-
-
-def _rel(a, b):
-    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
-
-
-def _cos(a, b):
-    a, b = a.double().flatten(), b.double().flatten()
-    return float(a @ b / (a.norm() * b.norm()))
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape,dtype", FWD)
 def test_mocked_forward_kernels_match_plain_versions(lib, dtype, shape):
-    """stats within 1e-5 (float32) or 1e-3 (bf16) of its max; the pooled
-    output within 1e-5, or in bf16 equal on all but 1% of the elements and
-    within 2^-7 of its max (the CPU conv sums in another order)."""
-    x, wt, g, vecs, s_r, _ = _operands(shape, dtype)
-    assert _rel(_stats(lib, x, wt), s_r) <= (1e-5 if dtype == torch.float32
-                                             else 1e-3)
-    pooled = _emit(lib, x, wt, *vecs[:2])
-    want = sk.stem_emit_reference(x, wt, *vecs[:2])
-    diff = (pooled.float() - want.float()).abs()
-    if dtype == torch.float32:
-        assert float(diff.max()) <= 1e-5
-    else:
-        assert float((diff > 0).float().mean()) <= 0.01
-        assert float(diff.max()) <= 2.0 ** -7 * float(want.float().abs().max())
+    """:func:`tests.stem_mock_common.check_forward`."""
+    check_forward(lib, dtype, shape)
 
 
-@pytest.mark.parametrize("dtype", [
-    torch.float32,            # the f32-pipe kernels
-    torch.bfloat16,           # the tensor-core kernels
-])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape,dtype", BWD)
 def test_mocked_backward_kernels_match_plain_versions(lib, dtype, shape):
-    """sums and dW within 1e-4 of their max in float32; in bf16 within the
-    card checks' limits (cosine >= 0.995, 2e-3 of the max). The mock gives
-    the grid 2 blocks, so at 27 tiles each block walks 13 or 14 of them
-    through both load stages."""
-    x, wt, g, vecs, _, u_r = _operands(shape, dtype)
-    d_r = sk.stem_bwd_dw_reference(x, wt, *vecs, g)
-    u = _bwd(lib, "bwd_sums", x, wt, vecs, g, 64).view(2, 32)
-    d = _bwd(lib, "bwd_dw", x, wt, vecs, g, 864).view(3, 3, 3, 32)
-    for got, want in ((u, u_r), (d, d_r)):
-        if dtype == torch.float32:
-            assert _rel(got, want) <= 1e-4
-        else:
-            assert _rel(got, want) <= 2e-3
-            assert _cos(got, want) >= 0.995
-    # no atomics, fixed orders: a second launch gives the same bits
-    assert torch.equal(d, _bwd(lib, "bwd_dw", x, wt, vecs, g,
-                               864).view(3, 3, 3, 32))
+    """:func:`tests.stem_mock_common.check_backward`."""
+    check_backward(lib, dtype, shape)
 
 
 def test_mocked_tensor_core_backward_zeroes_outside_pixels(lib):
@@ -196,30 +88,6 @@ def test_mocked_stats_masks_the_conv_beyond_the_border(lib):
     x, wt, _, _, _, _ = _operands((1, 12, 20), torch.bfloat16)
     x = (x.float() * 50.0 + 50.0).to(torch.bfloat16)
     assert _rel(_stats(lib, x, wt), sk.stem_stats_reference(x, wt)) <= 1e-3
-
-
-def test_mocked_forward_kernels_give_the_same_bits_twice(lib):
-    """No atomics and fixed orders in stats; emit stores each element once."""
-    x, wt, _, vecs, _, _ = _operands((3, 40, 70), torch.bfloat16)
-    assert torch.equal(_stats(lib, x, wt), _stats(lib, x, wt))
-    assert torch.equal(_emit(lib, x, wt, *vecs[:2]),
-                       _emit(lib, x, wt, *vecs[:2]))
-
-
-@pytest.mark.parametrize("shape", SHAPES)
-def test_mocked_forward_and_backward_agree_on_every_window(lib, shape):
-    """With a cotangent of ones bwd_sums' first row counts the pool windows
-    of a channel whose max is positive (small integers, exact in float32).
-    They are the windows emit wrote as positive, in all 32 channels: both
-    kernels make pre and y by one instruction sequence."""
-    x, wt, g, vecs, _, _ = _operands(shape, torch.bfloat16)
-    pooled = _emit(lib, x, wt, *vecs[:2])
-    positive = _bwd(lib, "bwd_sums", x, wt, vecs, torch.ones_like(g),
-                    64).view(2, 32)[0]
-    emitted = (pooled > 0).sum(dim=(0, 1, 2)).float()
-    assert 0 < float(emitted.min())
-    assert float(emitted.max()) < pooled[..., 0].numel()
-    assert torch.equal(positive, emitted)
 
 
 def test_mocked_emit_stores_nothing_outside_the_output(lib):
@@ -290,58 +158,3 @@ def test_mocked_backward_equals_saved_outputs(lib):
     want = np.load(SAVED_BWD)
     assert got.shape == want.shape == (928,)
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
-
-
-# ---- a block of rows with its halo (the spatial layout) ---------------------
-
-def _blocks(x, n, zero_halo=False):
-    """The n row blocks of NHWC x, each with one row of its neighbours
-    above and below (zeros at the image's edge, or everywhere with
-    ``zero_halo``): the kernels' ``halo`` input."""
-    xp = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 1, 1)).to(x.dtype)
-    k = x.shape[1] // n
-    out = []
-    for i in range(n):
-        blk = xp[:, i * k:(i + 1) * k + 2].clone()
-        if zero_halo:
-            blk[:, 0].zero_()
-            blk[:, -1].zero_()
-        out.append(blk.contiguous())
-    return out
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_mocked_kernels_with_a_halo_match_the_whole_image(lib, dtype):
-    """Two row blocks of a (2, 32, 40) image (ragged column tiles), each
-    with its halo: the four kernels on each block against their plain
-    twins on it (as the forward and backward tests hold them), the pooled
-    blocks bit for bit the whole image's pooled rows, and the blocks'
-    sums and dW, added, the whole image's (1e-5 of the max in float32,
-    1e-3 in bf16). A halo of zeros in place of the neighbour's rows
-    changes the pooled rows at the block edge."""
-    x, wt, g, vecs, s_r, u_r = _operands((2, 32, 40), dtype)
-    blocks = _blocks(x, 2)
-    gs = g.chunk(2, dim=1)
-    tol = 1e-5 if dtype == torch.float32 else 1e-3
-    stats = [_stats(lib, b, wt, halo=1) for b in blocks]
-    pooled = [_emit(lib, b, wt, *vecs[:2], halo=1) for b in blocks]
-    sums = [_bwd(lib, "bwd_sums", b, wt, vecs, gi.contiguous(), 64, halo=1)
-            for b, gi in zip(blocks, gs)]
-    dws = [_bwd(lib, "bwd_dw", b, wt, vecs, gi.contiguous(), 864, halo=1)
-           for b, gi in zip(blocks, gs)]
-    for b, gi, s, u, d in zip(blocks, gs, stats, sums, dws):
-        gi = gi.contiguous()
-        assert _rel(s, sk.stem_stats_reference(b, wt, halo=True)) <= tol
-        assert _rel(u.view(2, 32), sk.stem_bwd_sums_reference(
-            b, wt, *vecs[:4], gi, halo=True)) <= 2e-3
-        assert _rel(d.view(3, 3, 3, 32), sk.stem_bwd_dw_reference(
-            b, wt, *vecs, gi, halo=True)) <= 2e-3
-    whole = _emit(lib, x, wt, *vecs[:2])
-    assert torch.equal(torch.cat(pooled, dim=1), whole)
-    assert _rel(stats[0] + stats[1], _stats(lib, x, wt)) <= tol
-    assert _rel((sums[0] + sums[1]).view(2, 32), u_r) <= 2e-3
-    assert _rel(dws[0] + dws[1], _bwd(lib, "bwd_dw", x, wt, vecs, g, 864)
-                ) <= tol * 10
-    zeroed = [_emit(lib, b, wt, *vecs[:2], halo=1)
-              for b in _blocks(x, 2, zero_halo=True)]
-    assert not torch.equal(torch.cat(zeroed, dim=1), whole)

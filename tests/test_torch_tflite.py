@@ -11,7 +11,6 @@ it do not ask for it."""
 
 import os
 import struct
-import sys
 
 import numpy as np
 import pytest
@@ -38,9 +37,13 @@ from podtpu_torch.ops.kernels.nms_kernel import (
     greedy_suppress_reference,
 )
 from podtpu_torch.train.steps import make_serve_fn
-from tests.torch_parity import flax_variables, podtpu_flat_weights, yolo_cfg
+from tests.torch_parity import (
+    fake_voc_run,
+    flax_variables,
+    podtpu_flat_weights,
+    yolo_cfg,
+)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = yolo_cfg(num_classes=3)
 B = 2
 
@@ -430,19 +433,30 @@ def test_artifact_runner_takes_tflite(yolo, served):
 
 
 def test_refusals(yolo, tmp_path):
-    """``--quantize`` and ``--batch dyn`` refused for TFLite (10b; a
-    static batch, as podtpu), a ``.savedmodel`` refused, a file that is
-    not TFLite refused, and an unlowered ATen target named."""
+    """``--quantize`` now writes a quantized file (item 10b; the files
+    themselves: ``tests/test_torch_tflite_quant.py``); ``--batch dyn``
+    refused for TFLite (a static batch, as podtpu), an unknown mode and an
+    int8 export without calibration batches refused, a ``.savedmodel``
+    refused, a file that is not TFLite refused, and an unlowered ATen
+    target named."""
     from podtpu_torch.cli import export_model as cli_export
     from podtpu_torch.export.runner import TFLITE_UNPORTED
 
-    with pytest.raises(NotImplementedError, match="10b"):
+    x = yolo["x"][:1]
+    q = export_tflite(yolo["model"], CFG, (1, 64, 64, 3),
+                      str(tmp_path / "q.tflite"), quantize="int8",
+                      rep_batches=[x])
+    assert "INT8" in inspect_tflite(q)["tensor_types"]
+    with pytest.raises(ValueError, match="rep_batches"):
         export_tflite(yolo["model"], CFG, (1, 64, 64, 3), "x.tflite",
                       quantize="int8")
+    with pytest.raises(ValueError, match="unknown quantize mode"):
+        export_tflite(yolo["model"], CFG, (1, 64, 64, 3), "x.tflite",
+                      quantize="int4")
     with pytest.raises(ValueError, match="static batch"):
         export_tflite(yolo["model"], CFG, (None, 64, 64, 3), "x.tflite")
-    for argv in (["--quantize", "dynamic"], ["--quantize", "int8"],
-                 ["--batch", "dyn"]):
+    for argv in (["--batch", "dyn"], ["--batch", "dyn", "--quantize",
+                                      "dynamic"]):
         with pytest.raises(SystemExit):
             cli_export.main(["--cfg", "configs/yolov3_voc.yaml", "--format",
                              "tflite", "--out", "x.tflite"] + argv)
@@ -451,7 +465,7 @@ def test_refusals(yolo, tmp_path):
                          "savedmodel"])
     with pytest.raises(NotImplementedError, match="SavedModel"):
         artifact_runner("m.savedmodel")
-    assert "quantized TFLite" in TFLITE_UNPORTED
+    assert "10c" in TFLITE_UNPORTED and "quantized" not in TFLITE_UNPORTED
     bad = tmp_path / "bad.tflite"
     bad.write_bytes(b"\x08\0\0\0NOPE" + b"\0" * 16)
     with pytest.raises(ValueError, match="TFL3"):
@@ -471,31 +485,7 @@ def test_refusals(yolo, tmp_path):
 def voc(tmp_path_factory):
     """A fabricated VOCdevkit converted to YOLO lists, a YOLOv4-tiny
     config at 64 px on it, and a checkpoint of seeded weights."""
-    import yaml
-
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    from make_fake_vocdevkit import fabricate
-    from voc_to_yolo import convert
-
-    from podtpu_torch.cli import convert_checkpoint as cli_convert
-    from podtpu_torch.config import get_configs
-
-    root = tmp_path_factory.mktemp("voc")
-    fabricate(str(root / "devkit"), n_2007_train=2, n_2007_val=4, n_2012=1,
-              size=96, seed=5)
-    lists = convert(str(root / "devkit"), str(root / "yolo"))
-    cfg = get_configs(os.path.join(REPO, "configs", "yolov4-tiny_voc.yaml"))
-    cfg.update(input_size=64, compute_dtype="float32", batch_size=2,
-               workers=1, max_annots=8, save_dir=str(root),
-               train_list=lists["train_list"], val_list=lists["val_list"],
-               names=lists["names"], conf_threshold=0.05)
-    path = root / "cfg.yaml"
-    path.write_text(yaml.safe_dump(cfg))
-    npz = str(root / "w.npz")
-    np.savez(npz, **podtpu_flat_weights(cfg, seed=8))
-    cli_convert.main(["--cfg", str(path), "--ckpt", npz, "--out",
-                      str(root / "ckpt"), "--device", "cpu"])
-    return str(path), str(root / "ckpt" / "converted"), root
+    return fake_voc_run(tmp_path_factory.mktemp("voc"))
 
 
 def test_cli_export_tflite_then_test_artifact(voc, capsys, monkeypatch):

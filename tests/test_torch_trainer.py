@@ -2,16 +2,16 @@
 the eval step, ``Trainer.validate`` and a 2-epoch ``Trainer.fit`` on
 ``configs/yolov3_voc.yaml``'s recipe at 64 px in float32, from podtpu's
 weights carried across through the flat ``.npz`` layout
-(tests/torch_parity.py); then the port's own checkpoint, resume,
-preemption and early-stopping behaviour.
+(tests/torch_parity.py); then the port's checkpoint staging and its
+TensorBoard writer. Resume and preemption:
+``tests/test_torch_trainer_resume.py``; early stopping, refused options
+and the CLI: ``tests/test_torch_trainer_cli.py``.
 
 podtpu's side runs once, in one module fixture (its eval and train steps
 are jitted once)."""
 
 import os
 import shutil
-import signal
-import threading
 
 import numpy as np
 import pytest
@@ -22,9 +22,6 @@ from podtpu.data import build_datasets as podtpu_build_datasets
 from podtpu.metrics import map as jmap
 from podtpu.native import native_class_tp_fp as podtpu_native_tp_fp
 from podtpu.train.trainer import Trainer as JTrainer
-from podtpu_torch.config import get_configs
-from podtpu_torch.data.synthetic import generate
-from podtpu_torch.export.weights import load_flat_weights
 from podtpu_torch.metrics import map as tmap
 from podtpu_torch.native import build as native_build
 from podtpu_torch.native import native_class_tp_fp
@@ -34,80 +31,18 @@ from podtpu_torch.train.trainer import (
     CheckpointIO,
     Trainer,
     put_batch,
-    restore_eval_weights,
 )
 from tests.torch_parity import flax_variables, podtpu_flat_weights
+from tests.trainer_common import (  # noqa: F401 (fixtures)
+    _cfg,
+    _port_trainer,
+    _Scalars,
+    drop_checkpoints,
+    quiet,
+    recording_writer,
+    synth,
+)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-quiet = lambda *_: None  # noqa: E731
-
-
-class _Scalars:
-    """A TensorBoard writer that records ``add_scalar`` calls."""
-
-    def __init__(self):
-        self.scalars = []
-
-    def add_scalar(self, tag, value, step):
-        self.scalars.append((tag, float(value), int(step)))
-
-    def flush(self):
-        pass
-
-
-@pytest.fixture(autouse=True)
-def recording_writer(monkeypatch):
-    """Each Trainer of this file writes its scalars to a :class:`_Scalars`
-    (importing TensorBoard costs seconds); ``test_writer_*`` check the
-    real property."""
-    writers = []
-
-    def make(trainer):
-        if trainer._writer is None:
-            trainer._writer = _Scalars()
-            writers.append(trainer._writer)
-        return trainer._writer
-
-    monkeypatch.setattr(Trainer, "writer", property(make))
-    return writers
-
-
-@pytest.fixture(autouse=True)
-def drop_checkpoints(tmp_path):
-    """A checkpoint of the 64 px model is ~280 MB: each test's files go
-    when it ends."""
-    yield
-    shutil.rmtree(tmp_path, ignore_errors=True)
-
-
-@pytest.fixture(scope="module")
-def synth(tmp_path_factory):
-    out = tmp_path_factory.mktemp("synth")
-    return generate(str(out), n_train=8, n_val=6, size=80, num_classes=20,
-                    max_objects=3, seed=1)
-
-
-def _cfg(synth, save_dir, **extra):
-    """configs/yolov3_voc.yaml's recipe (nesterov SGD, yolo_lr with burn-in
-    1000, 20 classes) at 64 px, float32, B=4: 2 train steps an epoch, and
-    a ragged second val batch (6 = 4 + 2)."""
-    cfg = get_configs(os.path.join(REPO, "configs", "yolov3_voc.yaml"))
-    cfg.update(input_size=64, compute_dtype="float32", batch_size=4,
-               workers=2, max_annots=8, epochs=2, save_freq=1,
-               trainer_options={"check_val_every_n_epoch": 1},
-               train_list=synth["train_list"], val_list=synth["val_list"],
-               names=synth["names"], save_dir=str(save_dir))
-    cfg.update(extra)
-    return cfg
-
-
-def _port_trainer(cfg, flat, **kw):
-    trainer = Trainer(cfg, device="cpu", log=quiet, **kw)
-    load_flat_weights(trainer.state.model, flat)
-    return trainer
-
-
-# ---- the matcher and mAP --------------------------------------------------
 
 def _rows(rng, n, n_img, n_cls, jitter_from=None):
     rows = np.zeros((n, 7), np.float32)
@@ -204,8 +139,6 @@ def test_map_matches_podtpu(seed):
     assert got.result() == 0.0 and got.img_idx == 0
 
 
-# ---- podtpu's run, once ---------------------------------------------------
-
 @pytest.fixture(scope="module")
 def podtpu_run(synth, tmp_path_factory):
     """podtpu's eval step on the first val batch, ``validate`` and a
@@ -295,65 +228,6 @@ def test_fit_two_epochs_matches_podtpu(podtpu_run, tmp_path):
     assert {"last", "best"} <= set(ckpts)
 
 
-# ---- the port's own checkpoint / resume / preemption behaviour ------------
-
-def _state_tensors(state):
-    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
-    for i, (p, st) in enumerate(state.optimizer.state.items()):
-        out[f"momentum.{i}"] = st["momentum_buffer"]
-    return out
-
-
-def test_checkpoint_restore_is_bitwise(synth, tmp_path):
-    cfg = _cfg(synth, tmp_path, scheduler=None)  # constant lr 1e-3
-    trainer = Trainer(cfg, device="cpu", log=quiet)
-    train_loader, _ = make_loaders(cfg)
-    for batch in train_loader:
-        batch.pop("n_valid")
-        trainer.state, _ = trainer.train_step(
-            trainer.state, put_batch(batch, trainer.device))
-    trainer.ckpt.save("last", trainer.state)
-    trainer.ckpt.save("epoch_0000", trainer.state)
-    saved = _state_tensors(trainer.state)
-    assert len([k for k in saved if k.startswith("momentum")]) == len(
-        list(trainer.state.model.parameters()))
-
-    fresh = Trainer(cfg, device="cpu", log=quiet, run_dir=str(tmp_path / "r2"))
-    assert fresh.state.step == 0
-    for name in ("last", "epoch_0000"):
-        path = os.path.join(trainer.run_dir, "checkpoints", name)
-        state = fresh.ckpt.restore(path, fresh.state)
-        assert state.step == trainer.state.step == 2
-        got = _state_tensors(state)
-        assert set(got) == set(saved)
-        dev = next(state.model.parameters()).device
-        for k, v in saved.items():
-            assert got[k].device == dev, k
-            assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
-
-    # weights only: parameters and BN statistics, not the optimizer or step
-    other = Trainer(cfg, device="cpu", log=quiet, eval_only=True)
-    restore_eval_weights(os.path.join(trainer.run_dir, "checkpoints", "last"),
-                         other.state, cfg)
-    assert other.state.step == 0 and not other.state.optimizer.state
-    for k, v in trainer.state.model.state_dict().items():
-        assert torch.equal(other.state.model.state_dict()[k], v), k
-
-
-def test_two_epochs_equal_one_plus_resume_plus_one(synth, tmp_path):
-    cfg = _cfg(synth, tmp_path, scheduler=None, save_freq=100)
-    straight = train(dict(cfg, epochs=2), device="cpu")
-    first = train(dict(cfg, epochs=1), device="cpu")
-    last = os.path.join(first.run_dir, "checkpoints", "last")
-    resumed = train(dict(cfg, epochs=2), resume=last, device="cpu")
-    assert [r["epoch"] for r in resumed.history] == [1]
-    for key in ("step", "train_loss", "lr", "val_loss", "val_mAP"):
-        assert resumed.history[0][key] == straight.history[1][key], key
-    want, got = (_state_tensors(t.state) for t in (straight, resumed))
-    for k, v in want.items():
-        assert torch.equal(got[k], v), k
-
-
 def _touch_ckpt(path):
     os.makedirs(path)
     open(os.path.join(path, "state.pt"), "w").close()
@@ -404,120 +278,6 @@ def test_prune_periodic_orders_numerically(tmp_path):
     assert {"epoch_10000.tmp-123", "last", "best"} <= left
 
 
-def test_sigterm_saves_last_and_fit_returns(synth, tmp_path):
-    cfg = _cfg(synth, tmp_path, save_freq=100)
-    train_loader, val_loader = make_loaders(cfg)
-    trainer = Trainer(cfg, device="cpu", log=quiet)
-    fired = threading.Event()
-
-    def fire_when_training():
-        while trainer.state.step < 1:
-            fired.wait(0.05)
-        os.kill(os.getpid(), signal.SIGTERM)
-
-    before = signal.getsignal(signal.SIGTERM)
-    t = threading.Thread(target=fire_when_training, daemon=True)
-    t.start()
-    history = trainer.fit(train_loader, val_loader, epochs=1000)
-    t.join(5)
-    assert len(history) < 1000
-    ckpt_dir = os.path.join(trainer.run_dir, "checkpoints")
-    fresh = Trainer(cfg, device="cpu", log=quiet, eval_only=True)
-    state = CheckpointIO(ckpt_dir).restore(os.path.join(ckpt_dir, "last"),
-                                           fresh.state)
-    assert state.step == trainer.state.step > 0
-    assert signal.getsignal(signal.SIGTERM) == before
-
-
-def test_second_sigterm_escalates():
-    """The real handler in a child process: the first SIGTERM sets the
-    flag, the second kills with the default action."""
-    import subprocess
-    import sys
-
-    child = (
-        "import signal, sys, threading, time\n"
-        "sys.path.insert(0, %r)\n"
-        "from podtpu_torch.train.trainer import make_preempt_handler\n"
-        "ev = threading.Event()\n"
-        "signal.signal(signal.SIGTERM, make_preempt_handler(ev))\n"
-        "print('READY', flush=True)\n"
-        "while not ev.is_set():\n"
-        "    time.sleep(0.05)\n"
-        "print('FLAG', flush=True)\n"
-        "time.sleep(60)\n" % REPO)
-    p = subprocess.Popen([sys.executable, "-c", child],
-                         stdout=subprocess.PIPE, text=True)
-    try:
-        assert p.stdout.readline().strip() == "READY"
-        p.send_signal(signal.SIGTERM)
-        assert p.stdout.readline().strip() == "FLAG"
-        assert p.poll() is None
-        p.send_signal(signal.SIGTERM)
-        assert p.wait(timeout=10) == -signal.SIGTERM
-    finally:
-        if p.poll() is None:
-            p.kill()
-
-
-def test_early_stopping_counts_validation_rounds(synth, tmp_path,
-                                                 monkeypatch):
-    """Patience 1: the first round that does not lower val_loss stops the
-    run; ``best`` is saved on each new low."""
-    cfg = _cfg(synth, tmp_path, early_stopping_patience=1, save_freq=100)
-    train_loader, val_loader = make_loaders(cfg)
-    trainer = Trainer(cfg, device="cpu", log=quiet)
-    losses = iter([3.0, 2.0, 2.5, 1.0])
-    saved = []
-    monkeypatch.setattr(trainer, "validate",
-                        lambda _: {"val_loss": next(losses), "val_mAP": 0.0})
-    save = trainer.ckpt.save
-    monkeypatch.setattr(trainer.ckpt, "save",
-                        lambda name, st: (saved.append((name, st.step)),
-                                          save(name, st)))
-    history = trainer.fit(train_loader, val_loader, epochs=10)
-    assert [r["val_loss"] for r in history] == [3.0, 2.0, 2.5]
-    assert [s for s in saved if s[0] == "best"] == [("best", 2), ("best", 4)]
-    assert [s for s in saved if s[0] == "last"] == [("last", 2), ("last", 4),
-                                                    ("last", 6)]
-
-
-def test_unported_eval_options_raise(synth, tmp_path):
-    """``make_eval_step(extra_variables={"quant": ...})`` (the int8 eval of
-    ``cli.test --quantize``, no longer refused): the quant state is in
-    place for the call only (the state's keys and mode come back), its
-    detections are those of the model with the state installed, and they
-    differ from the float model's; another collection raises."""
-    from podtpu_torch.export import quantize
-    from podtpu_torch.train.state import create_train_state
-    from podtpu_torch.train.trainer import put_batch
-
-    cfg = _cfg(synth, tmp_path)
-    # seeded He-normal weights: torch's default init shrinks the heads to
-    # ~0, where int8 and float agree to the bit
-    state = create_train_state(cfg, "cpu",
-                               weights=podtpu_flat_weights(cfg, seed=2))
-    batch = next(iter(make_loaders(cfg)[1]))
-    batch.pop("n_valid", None)
-    batch = put_batch(batch, torch.device("cpu"))
-    qvars = quantize.build_quant_variables(
-        state.model, quantize.calibrate(state.model,
-                                        [batch["img"].float() / 255.0]))
-    keys = set(state.model.state_dict())
-    loss, dets, valid = make_eval_step(cfg, extra_variables=qvars)(state,
-                                                                   batch)
-    assert set(state.model.state_dict()) == keys and state.model.training
-    assert torch.isfinite(loss)
-    with quantize.quant_scope(state.model, qvars["quant"]):
-        want = make_eval_step(cfg)(state, batch)
-    assert torch.equal(loss, want[0]) and torch.equal(dets, want[1])
-    assert torch.equal(valid, want[2])
-    float_loss = make_eval_step(cfg)(state, batch)[0]
-    assert not torch.equal(loss, float_loss)
-    with pytest.raises(ValueError, match="quant"):
-        make_eval_step(cfg, extra_variables={"quant_stats": {}})
-
-
 def test_entry_points_default_to_cuda(synth, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = _cfg(synth, tmp_path)
@@ -525,29 +285,6 @@ def test_entry_points_default_to_cuda(synth, tmp_path, monkeypatch):
         Trainer(cfg, log=quiet)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train(cfg)
-
-
-def test_cli_trains_on_the_cpu(synth, tmp_path, monkeypatch, capsys):
-    """``python -m podtpu_torch.train.run --cfg ... --device cpu`` on a
-    synthetic set (its ``main``, in this process): one epoch, validated,
-    checkpoints written."""
-    import sys
-
-    import yaml
-
-    from podtpu_torch.train import run
-
-    cfg = _cfg(synth, tmp_path / "runs", epochs=1)
-    path = tmp_path / "cfg.yaml"
-    path.write_text(yaml.safe_dump(cfg))
-    monkeypatch.setattr(sys, "argv", ["run", "--cfg", str(path),
-                                      "--device", "cpu"])
-    run.main()
-    out = capsys.readouterr().out
-    assert "Total trainable params" in out
-    assert "epoch 0:" in out and "val_mAP=" in out
-    ckpts = tmp_path / "runs" / "yolov3_voc" / "version_0" / "checkpoints"
-    assert {"last", "best", "epoch_0000"} <= set(os.listdir(ckpts))
 
 
 def test_fit_writes_the_scalars(podtpu_run, tmp_path, recording_writer):

@@ -178,3 +178,37 @@ def synth(tmp_path_factory):
     out = tmp_path_factory.mktemp("synth")
     return generate(str(out), n_train=8, n_val=6, size=80, num_classes=20,
                     max_objects=3, seed=1)
+
+
+def fake_voc_run(root) -> tuple[str, str, object]:
+    """A fabricated VOCdevkit under ``root`` converted to YOLO lists, a
+    YOLOv4-tiny config at 64 px on it and a checkpoint of seeded weights:
+    ``(config path, checkpoint, root)``."""
+    import os
+    import sys
+
+    import yaml
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(repo, "tools"))
+    from make_fake_vocdevkit import fabricate
+    from voc_to_yolo import convert
+
+    from podtpu_torch.cli import convert_checkpoint as cli_convert
+    from podtpu_torch.config import get_configs
+
+    fabricate(str(root / "devkit"), n_2007_train=2, n_2007_val=4, n_2012=1,
+              size=96, seed=5)
+    lists = convert(str(root / "devkit"), str(root / "yolo"))
+    cfg = get_configs(os.path.join(repo, "configs", "yolov4-tiny_voc.yaml"))
+    cfg.update(input_size=64, compute_dtype="float32", batch_size=2,
+               workers=1, max_annots=8, save_dir=str(root),
+               train_list=lists["train_list"], val_list=lists["val_list"],
+               names=lists["names"], conf_threshold=0.05)
+    path = root / "cfg.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    npz = str(root / "w.npz")
+    np.savez(npz, **podtpu_flat_weights(cfg, seed=8))
+    cli_convert.main(["--cfg", str(path), "--ckpt", npz, "--out",
+                      str(root / "ckpt"), "--device", "cpu"])
+    return str(path), str(root / "ckpt" / "converted"), root
