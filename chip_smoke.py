@@ -4041,6 +4041,137 @@ def tflite_quant_checks(cfg, dev, fit, tmp, float_rec):
     return launches, rec, checks
 
 
+# the forward SavedModel's heads, of their scale: float32 with TF32 off,
+# the BN epilogue folded into the filters, as the TFLite file
+SAVEDMODEL_TOL = 1e-5
+
+
+def savedmodel_checks(cfg, dev, fit, tmp, tflite_rec, quant_rec):
+    """Phase 20's SavedModel part: YOLOv3-416 from phase 9's ``best`` in
+    float32 (TF32 off) as serving and forward SavedModels at B=1 and B=8,
+    written by ``export/savedmodel.py`` and run by its reader on the card
+    on the fifth val batch (the quantized part's input): the detections
+    held to the in-process float32 ``make_serve_fn`` (paired as
+    :func:`_dets_match`), the heads to the in-process forward within
+    :data:`SAVEDMODEL_TOL` of their scale, the card against the reader on
+    the CPU on the same B=1 file, one suppression launch a reader call,
+    MB, export s, and ms a batch beside in-process serving and the float
+    ``.tflite`` reader of the same run (``tflite_quant_checks``); then
+    ``cli.export_model --format savedmodel`` and ``cli.test --artifact``:
+    one launch a batch, val mAP equal to the float ``.tflite``'s
+    (``tflite_checks``) within 1e-6. Returns ``(launches, record,
+    checks)``."""
+    import shutil
+
+    from podtpu_torch.cli import eval_trainer
+    from podtpu_torch.cli import export_model as cli_export
+    from podtpu_torch.cli import test as cli_test
+    from podtpu_torch.export import savedmodel
+    from podtpu_torch.train.steps import make_serve_fn
+
+    fit_cfg = dict(fit["cfg"], compute_dtype="float32", batch_size=8)
+    yaml_path = _write_yaml(fit_cfg, tmp, "export_savedmodel_f32.yaml")
+    model = eval_trainer(fit_cfg, fit["best"], dev).state.model.eval()
+    serve = make_serve_fn(fit_cfg, model)
+    size = cfg["input_size"]
+    launches, checks, rec = {k: 0 for k in _counts()}, {}, {}
+    for b in (1, 8):
+        shape = (b, size, size, 3)
+        x = torch.from_numpy(cli_export._calibration_batches(
+            fit_cfg, shape, 5)[4]).to(dev)
+        r = {}
+        for kind, post in (("serving", True), ("forward", False)):
+            path = os.path.join(tmp, f"best_{kind}_B{b}.savedmodel")
+            t0 = time.perf_counter()
+            savedmodel.export_savedmodel(model, fit_cfg, shape, path,
+                                         with_postprocess=post)
+            m = {"export_s": time.perf_counter() - t0}
+            t0 = time.perf_counter()
+            prog = savedmodel.load_savedmodel(path, dev)
+            torch.cuda.synchronize()
+            info = savedmodel.inspect_savedmodel(path)
+            m.update(load_s=time.perf_counter() - t0, MB=info["MB"],
+                     ops=info["ops"], signature=info["signature"])
+            if post:
+                want = serve(x)
+                torch.cuda.synchronize()
+                _zero_counts()
+                got = prog(x)
+                torch.cuda.synchronize()
+                one = _counts()
+                again = prog(x)
+                torch.cuda.synchronize()
+                two = _counts()
+                launches = _add_counts(launches, two)
+                close, stats = _dets_match(got, want)
+                on_card = all(t.device.type == "cuda" for t in got + again)
+                m.update(vs_in_process=stats, launches_one_call=one,
+                         launches_two_calls=two, outputs_on_card=on_card,
+                         repeat_equal=bool(torch.equal(got[0], again[0])
+                                           and torch.equal(got[1],
+                                                           again[1])))
+                m["ms_reader"] = cuda_ms(lambda: prog(x), 10)
+                m["ms_in_process_f32"] = cuda_ms(lambda: serve(x), 10)
+                m["ms_tflite_float_reader"] = quant_rec[f"B{b}"]["float"][
+                    "ms_reader"]
+                checks[f"savedmodel_B{b}"] = (
+                    close and on_card and m["repeat_equal"]
+                    and one["greedy_suppress"] == 1
+                    and two["greedy_suppress"] == 2
+                    and not any(v for k, v in two.items()
+                                if k.startswith("stem")))
+                if b == 1:  # the reader on the CPU, on the same file
+                    cpu = savedmodel.load_savedmodel(path, "cpu")(x.cpu())
+                    same, cstats = _dets_match(
+                        tuple(t.cpu() for t in got), cpu)
+                    m["card_vs_cpu"] = cstats
+                    checks["savedmodel_card_vs_cpu"] = same and on_card
+            else:
+                with torch.inference_mode():
+                    heads = [h.float() for h in model(x)]
+                got = prog(x)
+                m["heads_rel_err"] = [rel_err(g, w) for g, w in
+                                      zip(got, heads)]
+                checks[f"savedmodel_forward_B{b}_heads"] = (
+                    len(got) == len(heads) == 3
+                    and all(g.shape == w.shape for g, w in zip(got, heads))
+                    and max(m["heads_rel_err"]) <= SAVEDMODEL_TOL)
+            r[kind] = m
+            del prog, got
+            shutil.rmtree(path)
+        rec[f"B{b}"] = r
+    # cli.export_model --format savedmodel, then cli.test --artifact on it
+    art = os.path.join(tmp, "best_serving_B8.savedmodel")
+    t0 = time.perf_counter()
+    cli_export.main(["--cfg", yaml_path, "--ckpt", fit["best"], "--format",
+                     "savedmodel", "--with-postprocess", "--batch", "8",
+                     "--out", art, "--device", dev.type])
+    export_s = time.perf_counter() - t0
+    with open(fit_cfg["val_list"]) as f:
+        n_val = len(f.read().split())
+    torch.cuda.synchronize()
+    _zero_counts()
+    got = cli_test.main(["--cfg", yaml_path, "--artifact", art, "--device",
+                         dev.type])
+    torch.cuda.synchronize()
+    test_launches = _counts()
+    launches = _add_counts(launches, test_launches)
+    tflite_map = tflite_rec["cli_test"]["artifact_val_mAP"]
+    rec["cli_test"] = {
+        "export_s": export_s,
+        "MB": savedmodel.inspect_savedmodel(art)["MB"],
+        "savedmodel_val_mAP": got["val_mAP"], "tflite_val_mAP": tflite_map,
+        "batches": -(-n_val // 8), "launches_test_artifact": test_launches}
+    checks["savedmodel_cli_test_launches"] = \
+        test_launches["greedy_suppress"] == -(-n_val // 8)
+    checks["savedmodel_cli_test_mAP"] = \
+        abs(got["val_mAP"] - tflite_map) <= 1e-6
+    shutil.rmtree(art)
+    del model, serve
+    torch.cuda.empty_cache()
+    return launches, rec, checks
+
+
 def export_phase(cfg, flat, dev, card, fit, images, tmp):
     """Phase 20: the export path on YOLOv3-416 with phase 3's weights:
     serving artifacts at B=8 and with a symbolic batch against the
@@ -4258,11 +4389,19 @@ def export_phase(cfg, flat, dev, card, fit, images, tmp):
     quant_rec["seconds"] = time.perf_counter() - t_quant
     launches = _add_counts(launches, quant_launches)
     checks.update(quant_ok)
+    # the SavedModels, written by hand and run by the port's reader
+    t_sm = time.perf_counter()
+    sm_launches, sm_rec, sm_ok = savedmodel_checks(
+        cfg, dev, fit, tmp, tflite_rec, quant_rec)
+    sm_rec["seconds"] = time.perf_counter() - t_sm
+    launches = _add_counts(launches, sm_launches)
+    checks.update(sm_ok)
     emit({"phase": "export", "config": "configs/yolov3_voc.yaml",
           "artifacts": artifacts, "serving_ops": ops,
           "tflite": tflite_rec, "launches_tflite": tflite_launches,
           "tflite_quant": quant_rec,
           "launches_tflite_quant": quant_launches,
+          "savedmodel": sm_rec, "launches_savedmodel": sm_launches,
           "npu": {"forward_ok": report["ok"],
                   "forward_distinct_ops": len(report["ops"]),
                   "serving_unsupported": serving_unsupported,
@@ -4294,7 +4433,13 @@ def export_phase(cfg, flat, dev, card, fit, images, tmp):
                               "CPU: heads within 0.1 of their scale; "
                               "int8 and dynamic heads within 0.1 of the "
                               "float file's scale (the CPU tests' bound); "
-                              "int8 file under half the float file"},
+                              "int8 file under half the float file",
+              "savedmodel": "float32 SavedModels against float32 "
+                            "in-process serving and the CPU reader: "
+                            "detections paired as the tflite files; the "
+                            "forward heads within 1e-5 of their max; "
+                            "cli.test val_mAP within 1e-6 of the float "
+                            ".tflite's"},
           "checks": checks, "launches": launches,
           "seconds": time.perf_counter() - t_phase, "card": card})
     if not all(checks.values()):
@@ -4306,6 +4451,8 @@ def export_phase(cfg, flat, dev, card, fit, images, tmp):
     artifacts["launches_tflite"] = tflite_launches
     artifacts["tflite_quant"] = quant_rec
     artifacts["launches_tflite_quant"] = quant_launches
+    artifacts["savedmodel"] = sm_rec
+    artifacts["launches_savedmodel"] = sm_launches
     return launches, artifacts
 
 
@@ -5656,6 +5803,10 @@ def main() -> int:
         **{f"ms_tflite_{m}_reader_B{b}": export_artifacts["tflite_quant"][
             f"B{b}"][m]["ms_reader"] for b in (1, 8)
            for m in ("float", "int8", "dynamic")},
+        "launches_export_savedmodel": export_artifacts[
+            "launches_savedmodel"]["greedy_suppress"],
+        **{f"ms_savedmodel_reader_B{b}": export_artifacts["savedmodel"][
+            f"B{b}"]["serving"]["ms_reader"] for b in (1, 8)},
         **{f"{k}_retina": retina_suppress[k]
            for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
         "plain_ms": plain_ms,

@@ -91,9 +91,9 @@ def add_common_args(ap, artifact_help: str):
     ap.add_argument("--cfg", required=True, type=str)
     ap.add_argument("--ckpt", type=str, default=None)
     ap.add_argument("--artifact", type=str, default=None,
-                    help=artifact_help + " (a .pt2 or .tflite from "
-                    "export_model --with-postprocess) instead of a "
-                    "checkpoint")
+                    help=artifact_help + " (a .pt2, .tflite or "
+                    ".savedmodel from export_model --with-postprocess) "
+                    "instead of a checkpoint")
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default cuda; cpu for local runs); "
-                    "where a .tflite artifact runs")
+                    "where a .tflite or .savedmodel artifact runs")

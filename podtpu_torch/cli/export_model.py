@@ -1,11 +1,13 @@
-"""Export a model to a ``torch.export`` artifact or a TFLite file (the
-port's ``export_model.py``; torch2onnx.py analog).
+"""Export a model to a ``torch.export`` artifact, a TFLite file or a TF
+SavedModel (the port's ``export_model.py``; torch2onnx.py analog).
 
     python -m podtpu_torch.cli.export_model --cfg configs/yolov3_voc.yaml \\
         [--ckpt ...] --out model.pt2 [--inspect] [--device cpu]
     python -m podtpu_torch.cli.export_model --cfg ... --format tflite \\
         --with-postprocess --out model.tflite [--fold-bn] [--device cpu] \\
         [--quantize dynamic|int8 [--calib-batches N]]
+    python -m podtpu_torch.cli.export_model --cfg ... --format savedmodel \\
+        --with-postprocess --out model.savedmodel [--device cpu]
 
 Options beyond the forward graph:
   --with-postprocess   the full serving unit, forward + decode + NMS (the
@@ -21,15 +23,18 @@ Options beyond the forward graph:
   --quantize dynamic   TFLite's dynamic range (int8 filters, float
                        compute); --format tflite only
   --batch N|dyn        the batch; ``dyn`` exports a symbolic one (pt2 only)
-  --format             pt2 (``torch.export``) or tflite (a flatbuffer
-                       written by ``export/tflite.py``); savedmodel
-                       raises: it is not ported
+  --format             pt2 (``torch.export``), tflite (a flatbuffer
+                       written by ``export/tflite.py``) or savedmodel (a
+                       directory of ``saved_model.pb`` written by
+                       ``export/savedmodel.py``, float32)
 
 A ``.pt2`` runs on the device it was exported on (``--device``, default
-cuda); a ``.tflite`` is device-free, and the port's reader runs it where
-its caller says (an int8 file is calibrated by the reader on
-``--device``). ``--format tflite`` refuses ``--batch dyn`` (as
-``podtpu``), and ``--quantize`` refuses it for any format.
+cuda); a ``.tflite`` or a SavedModel is device-free, and the port's
+readers run it where their caller says (an int8 file is calibrated by the
+reader on ``--device``). ``--format tflite`` and ``savedmodel`` refuse
+``--batch dyn`` (as ``podtpu``), ``savedmodel`` refuses ``--quantize``
+(as ``podtpu``), and ``--quantize`` refuses ``--batch dyn`` for any
+format.
 """
 
 from __future__ import annotations
@@ -78,8 +83,8 @@ def main(argv=None):
                     help="export the checkpoint's EMA shadow weights "
                          "(default: auto, as cli.test picks them)")
     ap.add_argument("--out", type=str, default=None,
-                    help="the artifact's path (default model.pt2, or "
-                         "model.tflite with --format tflite)")
+                    help="the artifact's path (default model.pt2, "
+                         "model.tflite or model.savedmodel by --format)")
     ap.add_argument("--batch", type=str, default="1",
                     help="batch size; 'dyn' exports a symbolic batch "
                          "dimension (one artifact serves any batch)")
@@ -106,15 +111,14 @@ def main(argv=None):
                          "cpu for local runs)")
     args = ap.parse_args(argv)
     if args.out is None:
-        args.out = "model.tflite" if args.format == "tflite" else "model.pt2"
-    if args.format == "savedmodel":
-        from podtpu_torch.export.runner import TFLITE_UNPORTED
-
-        raise NotImplementedError(TFLITE_UNPORTED)
-    if args.format == "tflite":
+        args.out = f"model.{args.format}"
+    if args.format in ("tflite", "savedmodel"):
+        if args.format == "savedmodel" and args.quantize:
+            ap.error("--quantize applies to --format tflite/pt2 (a "
+                     "SavedModel is float32)")
         if args.batch == "dyn":
-            ap.error("--batch dyn is not supported for --format tflite "
-                     "(a TFLite artifact takes a static batch)")
+            ap.error(f"--batch dyn is not supported for --format "
+                     f"{args.format} (it takes a static batch)")
         if args.annotate or args.validate_npu:
             ap.error("--annotate / --validate-npu read a .pt2 artifact")
     if args.quantize == "dynamic" and args.format != "tflite":
@@ -145,6 +149,18 @@ def main(argv=None):
     if args.quantize == "int8":
         rep = _calibration_batches(cfg, shape, args.calib_batches)
         print(f"int8 PTQ: calibrated on {len(rep)} batches")
+    if args.format == "savedmodel":
+        from podtpu_torch.export.savedmodel import (
+            export_savedmodel,
+            inspect_savedmodel,
+        )
+
+        path = export_savedmodel(model, cfg, shape, args.out,
+                                 with_postprocess=args.with_postprocess)
+        print(f"exported to {path}")
+        if args.inspect:
+            print(json.dumps(inspect_savedmodel(path), indent=2))
+        return path
     if args.format == "tflite":
         from podtpu_torch.export.tflite import export_tflite, inspect_tflite
 

@@ -1,19 +1,21 @@
 """Benchmark an exported artifact (the port's ``exported_inference.py``;
-onnx_inference.py:23-51 analog): load a ``.pt2`` program or a ``.tflite``
-file, run it on a seeded uniform input of its own shape, print the average
-latency and FPS.
+onnx_inference.py:23-51 analog): load a ``.pt2`` program, a ``.tflite``
+file or a SavedModel, run it on a seeded uniform input of its own shape,
+print the average latency and FPS.
 
     python -m podtpu_torch.cli.exported_inference --model model.pt2 \\
         [--iters 50]
     python -m podtpu_torch.cli.exported_inference --model model.tflite \\
         [--device cpu]
+    python -m podtpu_torch.cli.exported_inference --model x.savedmodel \\
+        [--device cpu]
 
-A ``.pt2`` runs on the device it was exported on; a ``.tflite`` runs
-through the port's reader (``export/tflite.py::load_tflite``) on
-``--device`` (default cuda). On the card each call is timed with CUDA
-events after warm-up; on the CPU by the host clock. A symbolic-batch
-artifact (``--batch dyn``) is timed at batch 1. A ``.savedmodel`` raises:
-it is not ported.
+A ``.pt2`` runs on the device it was exported on; a ``.tflite`` or a
+SavedModel runs through the port's reader (``export/tflite.py::
+load_tflite``, ``export/savedmodel.py::load_savedmodel``) on ``--device``
+(default cuda). On the card each call is timed with CUDA events after
+warm-up; on the CPU by the host clock. A symbolic-batch artifact
+(``--batch dyn``) is timed at batch 1.
 """
 
 from __future__ import annotations
@@ -28,16 +30,13 @@ import torch
 def bench(path: str, iters: int = 50, warmup: int = 3,
           device=None) -> dict:
     """``{"ms", "fps", "batch", "device"}`` of the artifact at ``path``;
-    ``device`` is where a ``.tflite`` runs (default cuda)."""
+    ``device`` is where a ``.tflite`` or a SavedModel runs (default
+    cuda)."""
     from podtpu_torch.export.program import load_exported, read_meta
-    from podtpu_torch.export.runner import TFLITE_UNPORTED
+    from podtpu_torch.export.runner import is_savedmodel, load_reader
 
-    if path.endswith(".savedmodel"):
-        raise NotImplementedError(TFLITE_UNPORTED)
-    if path.endswith(".tflite"):
-        from podtpu_torch.export.tflite import load_tflite
-
-        run = load_tflite(path, device or "cuda")
+    if path.endswith(".tflite") or is_savedmodel(path):
+        run = load_reader(path, device or "cuda")
         meta = dict(run.meta, device=str(run.device))
     else:
         meta = read_meta(path)
@@ -73,8 +72,9 @@ def main(argv=None):
     ap.add_argument("--model", required=True, type=str)
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--device", type=str, default=None,
-                    help="where a .tflite runs (default cuda; cpu for local "
-                         "runs); a .pt2 runs where it was exported")
+                    help="where a .tflite or a SavedModel runs (default "
+                         "cuda; cpu for local runs); a .pt2 runs where it "
+                         "was exported")
     args = ap.parse_args(argv)
     return bench(args.model, args.iters, device=args.device)
 

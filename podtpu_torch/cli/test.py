@@ -7,13 +7,16 @@ reference's ``test_yolov*.py`` Trainer.validate flow, test_yolov3.py:16-53).
     python -m podtpu_torch.cli.test --cfg ... --artifact model.pt2
     python -m podtpu_torch.cli.test --cfg ... --artifact model.tflite \\
         [--device cpu]
+    python -m podtpu_torch.cli.test --cfg ... --artifact model.savedmodel \\
+        [--device cpu]
 
 ``--quantize int8`` scores the int8-PTQ model: activation scales
 calibrated on the first ``--calib-batches`` val batches
 (``export/quantize.py``), the eval step with the quant state installed.
 ``--artifact`` scores an exported serving artifact: the val mAP of the
 deployed graph, through the same host mAP as ``validate``; a ``.tflite``
-runs through the port's reader on ``--device`` (default cuda).
+or a SavedModel runs through the port's reader on ``--device`` (default
+cuda).
 """
 
 from __future__ import annotations
@@ -86,7 +89,7 @@ def evaluate_artifact(cfg: dict, artifact: str,
     detections through the host mAP ``validate`` uses, so the number
     matches ``--ckpt`` on the same weights. A fixed-batch artifact runs
     at its batch, a symbolic one at cfg ``batch_size``; ``device`` is
-    where a ``.tflite`` runs."""
+    where a ``.tflite`` or a SavedModel runs."""
     from podtpu_torch.export.runner import artifact_runner, prepare_input
     from podtpu_torch.metrics.map import MeanAveragePrecision
 

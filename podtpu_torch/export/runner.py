@@ -7,25 +7,19 @@ back ``(dets [B, M, 6], valid [B, M])`` as numpy arrays: ``cli.test
 ``cli.make_pred_file``, ``cli.yolo2coco_pred_file`` and
 ``cli.make_video``. Artifacts are ``torch.export`` programs (``.pt2``,
 ``export/program.py``), which run on the device they were exported on,
-and TFLite files (``.tflite``, ``export/tflite.py``: float32, dynamic
-range or int8), which the port's reader runs on the device it is given
-(the card by default).
-
-A TF SavedModel is not ported: it is a TensorFlow ``GraphDef`` run by the
-TensorFlow runtime, which the port does not import. A ``.savedmodel`` path
-raises ``NotImplementedError`` saying so.
+TFLite files (``.tflite``, ``export/tflite.py``: float32, dynamic range or
+int8) and TF SavedModels (a ``.savedmodel`` path, or any directory holding
+a ``saved_model.pb``: ``export/savedmodel.py``), which the port's readers
+run on the device they are given (the card by default). ``podtpu``'s own
+SavedModel is refused naming ROADMAP.md item 10d.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
-
-TFLITE_UNPORTED = (
-    "SavedModel artifacts are not ported: a SavedModel is a TensorFlow "
-    "GraphDef run by the TensorFlow runtime, which the port does not import "
-    "(ROADMAP.md queue 1, item 10c); export a .tflite (float32, dynamic or "
-    "int8) or a torch.export program (.pt2) instead")
 
 
 def _not_serving(artifact: str, outs) -> ValueError:
@@ -33,10 +27,15 @@ def _not_serving(artifact: str, outs) -> ValueError:
                       f"{outs}); re-export with --with-postprocess")
 
 
+def is_savedmodel(artifact: str) -> bool:
+    return artifact.rstrip("/").endswith(".savedmodel") or os.path.exists(
+        os.path.join(artifact, "saved_model.pb"))
+
+
 def artifact_device(artifact: str, device=None) -> torch.device:
     """Where an artifact runs: a ``.pt2`` on the device it was exported
-    on, a ``.tflite`` on ``device`` (default cuda)."""
-    if artifact.endswith(".tflite"):
+    on, a ``.tflite`` or a SavedModel on ``device`` (default cuda)."""
+    if artifact.endswith(".tflite") or is_savedmodel(artifact):
         return torch.device(device or "cuda")
     from podtpu_torch.export.program import read_meta
 
@@ -51,11 +50,9 @@ def artifact_runner(artifact: str, device=None):
     dimension and the caller picks. Rejects a forward-only export (no
     decode + NMS inside) with a ``ValueError`` telling the user to
     re-export ``--with-postprocess``. ``device`` is where a ``.tflite``
-    runs (:func:`artifact_device`)."""
-    if artifact.endswith(".savedmodel"):
-        raise NotImplementedError(TFLITE_UNPORTED)
-    if artifact.endswith(".tflite"):
-        return _tflite_runner(artifact, artifact_device(artifact, device))
+    or a SavedModel runs (:func:`artifact_device`)."""
+    if artifact.endswith(".tflite") or is_savedmodel(artifact):
+        return _reader_runner(artifact, artifact_device(artifact, device))
     from podtpu_torch.export.program import (
         inspect_program,
         load_program,
@@ -78,10 +75,19 @@ def artifact_runner(artifact: str, device=None):
     return run, meta.get("batch")
 
 
-def _tflite_runner(artifact: str, dev: torch.device):
-    from podtpu_torch.export.tflite import load_tflite
+def load_reader(artifact: str, device):
+    """The port's reader of a ``.tflite`` or a SavedModel on ``device``."""
+    if artifact.endswith(".tflite"):
+        from podtpu_torch.export.tflite import load_tflite
 
-    prog = load_tflite(artifact, dev)
+        return load_tflite(artifact, device)
+    from podtpu_torch.export.savedmodel import load_savedmodel
+
+    return load_savedmodel(artifact, device)
+
+
+def _reader_runner(artifact: str, dev: torch.device):
+    prog = load_reader(artifact, dev)
     if prog.meta.get("kind", "serving") != "serving" or \
             len(prog.out_specs) != 2:
         raise _not_serving(artifact, prog.out_specs)

@@ -84,16 +84,17 @@ def export_tflite(model: torch.nn.Module, cfg: dict | None, input_shape,
 
 
 def lower_model(model: torch.nn.Module, cfg: dict | None, input_shape,
-                with_postprocess: bool = False):
+                with_postprocess: bool = False, fmt: str = "TFLite"):
     """The float32 TFLite subgraph of ``model`` (one ``torch.export``) and
     its metadata, for :func:`write_tflite` (which may write several files
-    of it)."""
+    of it), or with ``fmt="SavedModel"`` for
+    ``export/savedmodel.py::write_savedmodel``."""
     from podtpu_torch.export.program import _export
     from podtpu_torch.export.tflite_lower import lower_program
 
     if input_shape[0] is None or isinstance(input_shape[0], str):
-        raise ValueError("a TFLite artifact takes a static batch "
-                         "(podtpu refuses --batch dyn for TFLite too)")
+        raise ValueError(f"a {fmt} artifact takes a static batch "
+                         f"(podtpu refuses --batch dyn for {fmt} too)")
     if with_postprocess:
         from podtpu_torch.train.steps import make_serving_graph
 
@@ -104,7 +105,7 @@ def lower_model(model: torch.nn.Module, cfg: dict | None, input_shape,
     family = (cfg or {}).get("model", type(model).__name__)
     meta.update(dtype="float32", family=family)
     meta.pop("device", None)
-    return lower_program(ep, family), meta
+    return lower_program(ep, family, fmt), meta
 
 
 def write_tflite(lowered, path: str, quantize: str | None = None,
@@ -614,12 +615,14 @@ def _k_fc(p, name, ins, outs, o):
     return run
 
 
-def _nms_group(p, group):
+def _nms_group(p, group, strict: bool = False):
     """``NON_MAX_SUPPRESSION_V5`` of consecutive, independent operators
     with the same constants, as one batched ``greedy_suppress``: the
     candidates sorted by score (stable), suppressed at ``iou > thr`` with
     ``thr`` the float32 before the file's threshold (the port's ``>``;
-    TFLite's ``>=``), the survivors' indices, scores and count."""
+    TFLite's ``>=``), or the file's own where its op is ``strict`` (TF's
+    ``NonMaxSuppressionV5``, ``export/savedmodel.py``), the survivors'
+    indices, scores and count."""
     from podtpu_torch.ops.kernels.nms_kernel import greedy_suppress
 
     ins0 = group[0][1]
@@ -628,7 +631,7 @@ def _nms_group(p, group):
     score_thr = float(p.value(ins0[4]).reshape(()))
     if float(p.value(ins0[5]).reshape(())) != 0.0:
         raise NotImplementedError("soft NMS (soft_nms_sigma > 0)")
-    thr = float(np.nextafter(iou, np.float32(-np.inf)))
+    thr = float(iou if strict else np.nextafter(iou, np.float32(-np.inf)))
     boxes_t = [ins[0] for _, ins, _ in group]
     scores_t = [ins[1] for _, ins, _ in group]
     outs = [o for _, _, o in group]
@@ -703,7 +706,8 @@ class TFLiteProgram:
                     group.append(ops[i][:3])
                     group_outs.update(ops[i][2])
                     i += 1
-                self._steps.append(_nms_group(plan, group))
+                self._steps.append(_nms_group(plan, group,
+                                              o.get("strict", False)))
                 self._made.append(sorted(group_outs))
                 reads.append({t for g in group for t in g[1]})
                 made.update(group_outs)

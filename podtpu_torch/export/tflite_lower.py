@@ -45,6 +45,12 @@ it and the model family.
   ``REDUCE_ANY``). Boxes of no area bypass the op (TFLite selects such a
   box twice; the port keeps it and it suppresses nothing). What still
   differs from the port is written down in ``export/tflite.py``.
+
+The same walk lowers a program for a TF SavedModel (``fmt="SavedModel"``,
+``export/savedmodel_lower.py`` turns the subgraph into TF raw operators):
+TensorFlow's ``NonMaxSuppressionV5`` suppresses at ``iou > t`` as the port
+does, so its threshold is the port's own, and it never selects a box of no
+area twice, so no box bypasses it.
 """
 
 from __future__ import annotations
@@ -385,16 +391,17 @@ _CASTS = {"aten.to", "aten._to_copy"}
 
 
 class _Lowerer:
-    def __init__(self, ep, family: str):
+    def __init__(self, ep, family: str, fmt: str = "TFLite"):
         self.b = Builder()
         self.family = family
+        self.fmt = fmt
         self.env: dict = {}
         self._cache: dict = {}
         self.ep = ep
 
     def fail(self, what: str):
         raise NotImplementedError(
-            f"{self.family}: {what} has no TFLite lowering "
+            f"{self.family}: {what} has no {self.fmt} lowering "
             "(podtpu_torch/export/tflite_lower.py)")
 
     # -- values ------------------------------------------------------------
@@ -407,8 +414,9 @@ class _Lowerer:
                 try:
                     d = int(d)
                 except TypeError:
-                    raise ValueError("TFLite export takes a static batch "
-                                     f"(symbolic dimension {d})") from None
+                    raise ValueError(
+                        f"{self.fmt} export takes a static batch "
+                        f"(symbolic dimension {d})") from None
             shape.append(d)
         return tuple(shape), tf_type(val.dtype)
 
@@ -1059,7 +1067,10 @@ def _greedy_suppress(lw, node, boxes, valid, iou_threshold):
     kept and suppresses nothing. Boxes of no area (``(x2 - x1) (y2 - y1)
     <= 0`` in float32) therefore stay out of the op and join the keep
     mask after it. A threshold of 1 or more suppresses nothing in the port
-    (its IoU is never above 1): the mask is then ``valid``."""
+    (its IoU is never above 1): the mask is then ``valid``.
+
+    For a SavedModel (``lw.fmt``) the threshold is the port's and no box
+    bypasses the op (the module docstring)."""
     shape, _ = lw.meta(node)
     b, k = shape
     valid = valid if isinstance(valid, Dyn) else Dyn(
@@ -1068,22 +1079,25 @@ def _greedy_suppress(lw, node, boxes, valid, iou_threshold):
     if np.float32(iou_threshold) >= 1.0:
         return valid
     boxes = Dyn(lw.logical(lw.cast(boxes, "FLOAT32")), (b, k, 4), "FLOAT32")
-    lo = _strided_slice(lw, boxes, [0, 0, 0], [b, k, 2], [1, 1, 1],
-                        (b, k, 2), "FLOAT32")
-    hi = _strided_slice(lw, boxes, [0, 0, 2], [b, k, 4], [1, 1, 1],
-                        (b, k, 2), "FLOAT32")
-    wh = lw.emit("SUB", [hi.t, lo.t], (b, k, 2), "FLOAT32")
-    w = _strided_slice(lw, wh, [0, 0, 0], [b, k, 1], [1, 1, 1], (b, k),
-                       "FLOAT32", shrink=4)
-    h = _strided_slice(lw, wh, [0, 0, 1], [b, k, 2], [1, 1, 1], (b, k),
-                       "FLOAT32", shrink=4)
-    area = lw.emit("MUL", [w.t, h.t], (b, k), "FLOAT32")
-    some = lw.emit("GREATER", [area.t, lw.const(np.float32(0.0))], (b, k),
-                   "BOOL")
-    none = lw.emit("LOGICAL_NOT", [some.t], (b, k), "BOOL")
-    cand = lw.emit("LOGICAL_AND", [valid.t, some.t], (b, k), "BOOL")
-    flat = lw.emit("LOGICAL_AND", [valid.t, none.t], (b, k), "BOOL")
-    thr = np.nextafter(np.float32(iou_threshold), np.float32(np.inf))
+    tflite = lw.fmt == "TFLite"
+    cand, thr = valid, np.float32(iou_threshold)
+    if tflite:
+        lo = _strided_slice(lw, boxes, [0, 0, 0], [b, k, 2], [1, 1, 1],
+                            (b, k, 2), "FLOAT32")
+        hi = _strided_slice(lw, boxes, [0, 0, 2], [b, k, 4], [1, 1, 1],
+                            (b, k, 2), "FLOAT32")
+        wh = lw.emit("SUB", [hi.t, lo.t], (b, k, 2), "FLOAT32")
+        w = _strided_slice(lw, wh, [0, 0, 0], [b, k, 1], [1, 1, 1], (b, k),
+                           "FLOAT32", shrink=4)
+        h = _strided_slice(lw, wh, [0, 0, 1], [b, k, 2], [1, 1, 1], (b, k),
+                           "FLOAT32", shrink=4)
+        area = lw.emit("MUL", [w.t, h.t], (b, k), "FLOAT32")
+        some = lw.emit("GREATER", [area.t, lw.const(np.float32(0.0))],
+                       (b, k), "BOOL")
+        none = lw.emit("LOGICAL_NOT", [some.t], (b, k), "BOOL")
+        cand = lw.emit("LOGICAL_AND", [valid.t, some.t], (b, k), "BOOL")
+        flat = lw.emit("LOGICAL_AND", [valid.t, none.t], (b, k), "BOOL")
+        thr = np.nextafter(thr, np.float32(np.inf))
     ranks = lw.const(np.arange(k, 0, -1, dtype=np.float32))
     row = lw.const(np.arange(k, dtype=np.int32).reshape(1, k))
     col = lw.const(np.arange(k, dtype=np.int32).reshape(k, 1))
@@ -1115,15 +1129,18 @@ def _greedy_suppress(lw, node, boxes, valid, iou_threshold):
         masks.append(lw.emit("REDUCE_ANY", [both.t, lw.const(np.array(
             [0], np.int32))], (1, k), "BOOL", keep_dims=True))
     keep = masks[0] if b == 1 else _concat(lw, masks, 0, (b, k), "BOOL")
+    if not tflite:
+        return keep
     return lw.emit("LOGICAL_OR", [keep.t, flat.t], (b, k), "BOOL")
 
 
-def lower_program(ep, family: str = "model") -> Builder:
+def lower_program(ep, family: str = "model", fmt: str = "TFLite") -> Builder:
     """The TFLite subgraph of ``torch.export`` program ``ep``: its user
     inputs are the subgraph's inputs (the first named ``image``), its
     outputs the subgraph's outputs, in order; each convolution's
-    per-channel affine epilogue folded into it (:func:`fold_affine`)."""
-    b = _Lowerer(ep, family).run()
+    per-channel affine epilogue folded into it (:func:`fold_affine`).
+    ``fmt="SavedModel"`` lowers the suppression for TensorFlow's op."""
+    b = _Lowerer(ep, family, fmt).run()
     fold_affine(b)
     b.prune()
     return b

@@ -746,3 +746,59 @@ def test_int8_tflite_reader_on_the_card_gives_the_cpu_codes(cuda, tmp_path):
                 (want[:, 4] - row[4]).abs() <= 1e-4)
             assert fits.any(), row
             free[int(fits.int().argmax())] = False
+
+
+@pytest.mark.cuda
+def test_savedmodel_reader_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A YOLOv3 float32 serving SavedModel at 64 px (seeded weights, B=2):
+    the reader on the card runs the batch's two ``NonMaxSuppressionV5``
+    nodes as one suppression launch, and gives the CPU reader's valid
+    masks and detections (each paired with one of the CPU's: score within
+    1e-4, box within 1e-4 of its size). At these weights many scores tie
+    at 0.5: where ``max_detections`` cuts such a run, the two devices may
+    keep different members of it, so a detection left unpaired must score
+    within 1e-4 of the image's last kept score."""
+    from podtpu_torch.export.savedmodel import (
+        export_savedmodel,
+        load_savedmodel,
+    )
+    from podtpu_torch.models.factory import build_model
+
+    cfg = dict(model="yolov3", num_classes=3, input_size=64,
+               compute_dtype="float32", conf_threshold=0.25,
+               nms_iou_threshold=0.45, top_k_candidates=512,
+               max_detections=100, anchors=[
+                   [10, 13], [16, 30], [33, 23], [30, 61], [62, 45],
+                   [59, 119], [116, 90], [156, 198], [373, 326]])
+    torch.manual_seed(6)
+    model = build_model(cfg, "cpu").eval()
+    x = torch.from_numpy(np.random.default_rng(6).uniform(
+        0, 1, (2, 64, 64, 3)).astype(np.float32))
+    path = export_savedmodel(model, cfg, (2, 64, 64, 3),
+                             str(tmp_path / "s.savedmodel"),
+                             with_postprocess=True)
+    prog = load_savedmodel(path)
+    assert prog.device.type == "cuda"
+    before = greedy_suppress.launches
+    gd, gv = prog(x)
+    torch.cuda.synchronize()
+    assert greedy_suppress.launches == before + 1
+    cd, cv = load_savedmodel(path, "cpu")(x)
+    assert torch.equal(gv.cpu(), cv) and cv.any()
+    for g, c, v in zip(gd.cpu(), cd, cv):
+        free = torch.ones(int(v.sum()), dtype=torch.bool)
+        want = c[v].double()
+        alone = []
+        for row in g[v].double():
+            box = ((want[:, :4] - row[:4]).abs()
+                   / want[:, :4].abs().clamp_min(1.0)).amax(-1)
+            fits = free & (want[:, 5] == row[5]) & (box <= 1e-4) & (
+                (want[:, 4] - row[4]).abs() <= 1e-4)
+            if not fits.any():
+                alone.append(float(row[4]))
+                continue
+            free[int(fits.int().argmax())] = False
+        alone += want[free, 4].tolist()
+        if alone:
+            cut = float(want[:, 4].min())
+            assert all(abs(a - cut) <= 1e-4 for a in alone), (alone, cut)

@@ -338,20 +338,31 @@ def _case(name, extra, check, old_id):
 def test_unported_cli_options_raise(cli_env, podtpu_cli, artifact, tmp_path,
                                     capsys, name, extra, check):
     """The options that raised before the export path was ported: a
-    ``.savedmodel`` artifact still raises, naming SavedModel (a
-    ``.tflite`` one runs: ``tests/test_torch_tflite.py``); ``--quantize
+    ``.savedmodel`` artifact (float32, B=4, written by ``cli.export_model
+    --format savedmodel``) scores as podtpu's ``test.py`` on the same
+    weights, val_mAP within 1e-6 (as ``--artifact x.pt2``); ``--quantize
     int8`` scores as podtpu's ``test.py --quantize
     int8`` does on the same weights (val_loss 1e-3 relative, measured
     6.1e-4: the two calibrations' scales round apart, and a random-weight
     loss is sensitive to them; val_mAP 1e-3); ``--artifact x.pt2`` runs
     each CLI on the exported graph, with podtpu's detections."""
     cfg_path, ckpt, video = cli_env
-    extra = [{"ART": artifact, "CKPT": ckpt}.get(a, a) for a in extra]
+    if check == "savedmodel":
+        from podtpu_torch.cli import export_model as cli_export
+
+        saved = cli_export.main([
+            "--cfg", cfg_path, "--ckpt", ckpt, "--format", "savedmodel",
+            "--with-postprocess", "--batch", "4", "--out",
+            str(tmp_path / "a.savedmodel"), "--device", "cpu"])
+    extra = [{"ART": artifact, "CKPT": ckpt, "a.savedmodel": saved
+              if check == "savedmodel" else None}.get(a, a) for a in extra]
     argv = _argv(name, cfg_path, podtpu_cli, video, tmp_path, "--device",
                  "cpu", *extra)
     if check == "savedmodel":
-        with pytest.raises(NotImplementedError, match="SavedModel"):
-            CLIS[name][0].main(argv)
+        got = CLIS[name][0].main(argv)
+        assert got["val_mAP"] == pytest.approx(
+            podtpu_cli["evaluate"]["val_mAP"], abs=1e-6)
+        assert "a.savedmodel, batch 4" in capsys.readouterr().out
         return
     if name == "make_pred_file":
         argv[argv.index("--out") + 1] = str(tmp_path / "pred")

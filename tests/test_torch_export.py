@@ -281,9 +281,13 @@ def test_runner_rejects_a_forward_artifact_and_tflite(artifacts):
     fwd, _, _, _ = artifacts
     with pytest.raises(ValueError, match="--with-postprocess"):
         runner.artifact_runner(fwd)
-    # SavedModel is still refused; a .tflite is read (here: no such file)
-    with pytest.raises(NotImplementedError, match="SavedModel"):
-        runner.artifact_runner("model.savedmodel")
+    # a SavedModel and a .tflite are read (here: no such file); a directory
+    # holding a saved_model.pb is a SavedModel whatever its name
+    with pytest.raises(FileNotFoundError):
+        runner.artifact_runner("model.savedmodel", "cpu")
+    assert runner.is_savedmodel("model.savedmodel/")
+    assert not runner.is_savedmodel(fwd)
+    assert runner.artifact_device("model.savedmodel", "cpu").type == "cpu"
     with pytest.raises(FileNotFoundError):
         runner.artifact_runner("model.tflite", "cpu")
     info = program.inspect_exported(fwd)

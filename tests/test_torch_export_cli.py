@@ -275,9 +275,15 @@ def test_exported_inference_times_an_artifact(env, root_export,
     res = cli_bench.main(["--model", path, "--iters", "2"])
     assert res["batch"] == 2 and res["ms"] > 0 and res["device"] == "cpu"
     assert "avg latency:" in capsys.readouterr().out
-    # SavedModel is still refused (a .tflite is timed in
-    # tests/test_torch_tflite.py)
-    with pytest.raises(NotImplementedError, match="SavedModel"):
-        cli_bench.main(["--model", "model.savedmodel"])
-    with pytest.raises(NotImplementedError, match="SavedModel"):
-        cli_export.main(["--cfg", env[1], "--format", "savedmodel"])
+    # a SavedModel is exported and timed on the CPU (a .tflite is timed in
+    # tests/test_torch_tflite.py); --quantize refused for it, as podtpu
+    saved = str(root / "serve.savedmodel")
+    cli_export.main(["--cfg", env[1], "--format", "savedmodel",
+                     "--with-postprocess", "--out", saved, "--device",
+                     "cpu"])
+    res = cli_bench.main(["--model", saved, "--iters", "2", "--device",
+                          "cpu"])
+    assert res["batch"] == 1 and res["ms"] > 0 and res["device"] == "cpu"
+    with pytest.raises(SystemExit):
+        cli_export.main(["--cfg", env[1], "--format", "savedmodel",
+                         "--quantize", "int8"])

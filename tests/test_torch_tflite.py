@@ -436,11 +436,12 @@ def test_refusals(yolo, tmp_path):
     """``--quantize`` now writes a quantized file (item 10b; the files
     themselves: ``tests/test_torch_tflite_quant.py``); ``--batch dyn``
     refused for TFLite (a static batch, as podtpu), an unknown mode and an
-    int8 export without calibration batches refused, a ``.savedmodel``
-    refused, a file that is not TFLite refused, and an unlowered ATen
-    target named."""
+    int8 export without calibration batches refused, ``--format
+    savedmodel`` refusing ``--batch dyn`` and ``--quantize`` as podtpu
+    (SavedModels themselves: ``tests/test_torch_savedmodel.py``), a file
+    that is not TFLite refused, and an unlowered ATen target named."""
     from podtpu_torch.cli import export_model as cli_export
-    from podtpu_torch.export.runner import TFLITE_UNPORTED
+    from podtpu_torch.export.savedmodel import UNPORTED_10D
 
     x = yolo["x"][:1]
     q = export_tflite(yolo["model"], CFG, (1, 64, 64, 3),
@@ -460,12 +461,13 @@ def test_refusals(yolo, tmp_path):
         with pytest.raises(SystemExit):
             cli_export.main(["--cfg", "configs/yolov3_voc.yaml", "--format",
                              "tflite", "--out", "x.tflite"] + argv)
-    with pytest.raises(NotImplementedError, match="SavedModel"):
-        cli_export.main(["--cfg", "configs/yolov3_voc.yaml", "--format",
-                         "savedmodel"])
-    with pytest.raises(NotImplementedError, match="SavedModel"):
-        artifact_runner("m.savedmodel")
-    assert "10c" in TFLITE_UNPORTED and "quantized" not in TFLITE_UNPORTED
+    for argv in (["--batch", "dyn"], ["--quantize", "int8"]):
+        with pytest.raises(SystemExit):
+            cli_export.main(["--cfg", "configs/yolov3_voc.yaml", "--format",
+                             "savedmodel"] + argv)
+    with pytest.raises(FileNotFoundError):
+        artifact_runner("m.savedmodel", "cpu")
+    assert "10d" in UNPORTED_10D and "10c" not in UNPORTED_10D
     bad = tmp_path / "bad.tflite"
     bad.write_bytes(b"\x08\0\0\0NOPE" + b"\0" * 16)
     with pytest.raises(ValueError, match="TFL3"):
